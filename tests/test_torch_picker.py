@@ -1,0 +1,185 @@
+"""WaveformPicker of the port vs the JAX picker and the numpy oracle.
+
+A torch mirror of tests/test_oracle.py::DummyNet pins the window placement,
+flush window, blinding, stacking and trigger algebra: picks must be exactly
+those of the JAX picker and of ``picker/oracle.py::oracle_classify``, curves
+within 2e-5 (float32 sums in another order). A small EQTransformer pins the
+model path: curves within 2e-4 of the JAX picker (the EQT forward pin).
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from tests.test_oracle import THRESHOLDS, WINDOW, DummyNet, make_data
+from volpick_tpu.core import Stream, Trace, UTC
+from volpick_tpu.models import EQTransformer as JaxEQT
+from volpick_tpu.models.torch_import import import_eqtransformer
+from volpick_tpu.ops.triggers import extract_triggers_batched as jax_extract
+from volpick_tpu.picker.annotate import WaveformPicker as JaxPicker
+from volpick_tpu.picker.oracle import oracle_annotate, oracle_classify
+from volpick_tpu_torch.models import load_model
+from volpick_tpu_torch.models.convert import eqtransformer_state_dict_from_jax
+from volpick_tpu_torch.ops.triggers import extract_triggers_batched
+from volpick_tpu_torch.picker import WaveformPicker
+
+CURVE_ATOL = 2e-5
+EQT_ATOL = 2e-4
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class TorchDummyNet(torch.nn.Module):
+    """torch mirror of DummyNet: smoothed channel energy through steep sigmoids."""
+
+    name = DummyNet.name
+    in_samples = WINDOW
+    phases = DummyNet.phases
+    norm = DummyNet.norm
+    sampling_rate = DummyNet.sampling_rate
+    component_order = DummyNet.component_order
+    default_args = DummyNet.default_args
+
+    def forward(self, frames):  # (N, C, W) -> (N, 3, W)
+        kern = torch.full((1, 1, 31), 1.0 / 31.0, dtype=frames.dtype)
+        sm = lambda x: F.conv1d(x[:, None], kern, padding=15)[:, 0]
+        p = torch.sigmoid((sm(frames[:, 0].abs()) * 3.0 - 1.0) * 3.0)
+        s = torch.sigmoid((sm(frames[:, 1].abs()) * 3.0 - 1.0) * 3.0)
+        return torch.stack([p, s, 1.0 - torch.maximum(p, s)], dim=1)
+
+
+def _picks(res, label, total):
+    pk, _, valid, on, off = (a[0] for a in res[label])
+    return [(int(p), int(o), int(f)) for p, o, f, v in zip(pk, on, off, valid)
+            if v and o < total and p < total]
+
+
+@pytest.mark.parametrize(
+    "total,overlap,blinding,stacking,max_span",
+    [
+        (1234, 100, (0, 0), "avg", 500_000),   # flush window
+        (987, 200, (50, 50), "avg", 500_000),  # blinding + flush
+        (120, 100, (0, 0), "avg", 500_000),    # shorter than one window: padded
+        (640, WINDOW - 5, (0, 0), "avg", 500_000),  # stride 5: gather/scatter path
+        (1033, 150, (0, 0), "max", 500_000),   # max stacking + flush
+        (4000, 100, (20, 20), "avg", 1500),    # max_span: segmented and stitched
+    ],
+)
+def test_dummy_net_matches_jax_and_oracle(total, overlap, blinding, stacking, max_span):
+    rng = np.random.default_rng(total)
+    data = make_data(rng, total)
+    if total == 120:
+        data[0, 100:120] += np.hanning(20) * 5.0  # burst in the padded tail's window
+    port = WaveformPicker(TorchDummyNet(), device="cpu", detrend=False)
+    kw = dict(overlap=overlap, blinding=blinding, stacking=stacking, batch_size=8)
+    got = port.classify_arrays(data[None], THRESHOLDS, max_span=max_span, **kw)
+    jpick = JaxPicker(DummyNet(), {}, detrend=False)
+    want = jpick.classify_arrays(data[None], THRESHOLDS, max_span=max_span, **kw)
+    orc = oracle_classify(data, DummyNet.predict_np, WINDOW, overlap, THRESHOLDS,
+                          channels=list("PSN"), blinding=blinding, stacking=stacking,
+                          detrend=False, norm="peak")
+    for label in ("P", "S"):
+        assert _picks(got, label, total) == _picks(want, label, total)
+        assert [(p, o) for p, o, _ in _picks(got, label, total)] == [
+            (t[0], t[2]) for t in orc[label]
+        ]
+    curves = port.annotate_array(data[None], **kw)[0]
+    np.testing.assert_allclose(curves, jpick.annotate_array(data[None], **kw)[0], atol=CURVE_ATOL)
+    np.testing.assert_allclose(
+        curves,
+        oracle_annotate(data, DummyNet.predict_np, WINDOW, overlap, blinding=blinding,
+                        stacking=stacking, detrend=False, norm="peak"),
+        atol=CURVE_ATOL,
+    )
+
+
+def _eqt_stream(rng, n, stations=("ST1", "ST2")):
+    t0 = UTC("2024-06-01T00:00:00")
+    traces = []
+    t = np.arange(n) / 100.0
+    for si, sta in enumerate(stations):
+        data = rng.normal(size=(3, n)) * 0.05
+        env = np.where(t >= 12 + 3 * si, np.exp(-(t - 12 - 3 * si) / 2.0), 0.0)
+        data += np.sin(2 * np.pi * 6 * t) * env
+        for ci, comp in enumerate("ZNE"):
+            traces.append(Trace(data[ci].astype(np.float32), dict(
+                network="XX", station=sta, channel=f"HH{comp}", sampling_rate=100.0,
+                starttime=t0)))
+    return Stream(traces)
+
+
+@pytest.fixture(scope="module")
+def small_eqt(tmp_path_factory):
+    """The port's seeded model, carried to JAX through the JAX package's own
+    torch importer (a state-dict file round trip)."""
+    model = load_model("eqtransformer", seed=1, in_samples=1504, lstm_blocks=1)
+    path = tmp_path_factory.mktemp("eqt") / "volpick.pt.v1"
+    torch.save(model.state_dict(), path)
+    params = import_eqtransformer(str(path), n_lstm=1)
+    back = eqtransformer_state_dict_from_jax(params)
+    for k, v in model.state_dict().items():
+        assert torch.equal(back[k], v), k
+    jmodel = JaxEQT(in_samples=1504, lstm_blocks=1)
+    return jmodel, jax.tree_util.tree_map(jnp.asarray, params), model
+
+
+@pytest.mark.parametrize("overlap", [1128, 1004])  # stride 376 divides 1504; 500 does not
+def test_small_eqt_stream_matches_jax(small_eqt, overlap):
+    jmodel, jparams, model = small_eqt
+    stream = _eqt_stream(np.random.default_rng(overlap), 4100)
+    port = WaveformPicker(model, device="cpu")
+    jpick = JaxPicker(jmodel, jparams)
+    kw = dict(overlap=overlap, blinding=(200, 200), batch_size=8)
+    arrays = np.stack([g[1] for g in port._group_arrays(stream)])
+    curves = port.annotate_array(arrays, **kw)
+    jcurves = jpick.annotate_array(arrays, **kw)
+    assert curves.shape == jcurves.shape == (2, 3, 4100)
+    np.testing.assert_allclose(curves, jcurves, atol=EQT_ATOL)
+
+    # thresholds from the curves themselves (random weights have no fixed scale)
+    thr = [float(np.percentile(jcurves[:, k], 99.0)) for k in range(3)]
+    flat = jcurves.reshape(6, -1)
+    rows = np.repeat(np.float32(thr), 2)
+    mine = extract_triggers_batched(torch.from_numpy(flat.copy()), torch.from_numpy(rows), max_picks=16)
+    theirs = jax_extract(jnp.asarray(flat), jnp.asarray(rows), max_picks=16, method="blocked")
+    for a, b in zip(mine, theirs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    out = port.classify(stream, detection_threshold=thr[0], P_threshold=thr[1],
+                        S_threshold=thr[2], **kw)
+    assert len(out.picks) > 0 and len(out.detections) > 0
+    assert {p.phase for p in out.picks} <= {"P", "S"}
+    ann = port.annotate(stream, **kw)
+    assert {tr.stats.channel for tr in ann} == {
+        "EQTransformer_Detection", "EQTransformer_P", "EQTransformer_S"}
+    np.testing.assert_allclose(ann[0].data, curves[0, 0], atol=0)
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WaveformPicker(TorchDummyNet(), device="cuda")
+    with pytest.raises(ValueError):
+        WaveformPicker(TorchDummyNet(), device="meta")
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys, volpick_tpu_torch\n"
+        "for m in pkgutil.walk_packages(volpick_tpu_torch.__path__, 'volpick_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'jax' or (m.startswith('volpick_tpu.')"
+        " and not m.startswith('volpick_tpu.core'))]\n"
+        "print('BAD', sorted(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout

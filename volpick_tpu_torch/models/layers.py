@@ -1,0 +1,138 @@
+"""Functional layers of the picking trunks (PyTorch, NCW layout, eval mode).
+
+Port of ``volpick_tpu/models/layers.py``. Tensors are (B, C, W); conv
+kernels are (O, I, K) and LSTM weights keep torch's (i, f, g, o) gate
+layout, so parameters carry over from the JAX tree unchanged. The merged
+LSTM recurrence runs through ``ops/cuda/lstm.py::lstm_multi`` (a CUDA kernel
+on the card, its plain twin on the CPU).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from volpick_tpu_torch.ops.cuda.lstm import lstm_multi
+
+
+def conv1d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    padding: Tuple[int, int] = (0, 0),
+) -> torch.Tensor:
+    """1D convolution, (B, I, W) x (O, I, K) → (B, O, W'), explicit (left, right) pad."""
+    if padding != (0, 0):
+        x = F.pad(x, padding)
+    return F.conv1d(x, w, b)
+
+
+def conv1d_same(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """'same' conv; an even kernel pads one extra sample on the right (the
+    keras asymmetric 'same' of the reference models). torch's own
+    padding="same" puts the extra sample on the left instead."""
+    k = w.shape[-1]
+    return conv1d(x, w, b, padding=((k - 1) // 2, k // 2))
+
+
+def batch_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], eps: float = 1e-3) -> torch.Tensor:
+    """Eval-mode BatchNorm over (B, C, W) from running statistics; `p` holds
+    scale/bias/mean/var (C,). eps 1e-3 is the Keras convention of the models."""
+    inv = torch.rsqrt(p["var"] + eps)
+    return (x - p["mean"][None, :, None]) * (inv * p["scale"])[None, :, None] + p["bias"][
+        None, :, None
+    ]
+
+
+def layer_norm_keras(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-14
+) -> torch.Tensor:
+    """Keras LayerNormalization over the channel axis of (B, C, W); gamma and
+    beta are (C, 1) as in the reference weights."""
+    mean = x.mean(dim=1, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=1, keepdim=True)
+    return gamma[None] * (x - mean) / torch.sqrt(var + eps) + beta[None]
+
+
+def max_pool1d(x: torch.Tensor, k: int = 2, stride: Optional[int] = None, padding: int = 0):
+    """Max pooling over the last axis with -inf padding on both sides."""
+    if padding:
+        x = F.pad(x, (padding, padding), value=float("-inf"))
+    return F.max_pool1d(x, k, stride or k)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling along time."""
+    return torch.repeat_interleave(x, factor, dim=-1)
+
+
+def lstm(
+    x: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    b_ih: torch.Tensor,
+    b_hh: torch.Tensor,
+    reverse: bool = False,
+) -> torch.Tensor:
+    """One LSTM over (B, C, T) → (B, H, T), optionally scanning time reversed."""
+    xs = (x.flip(-1) if reverse else x)[None]
+    hs = lstm_multi(xs, w_ih[None], w_hh[None], (b_ih + b_hh)[None])[0]
+    return hs.flip(-1) if reverse else hs
+
+
+def bilstm(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Bidirectional LSTM, (B, C, T) → (B, 2H, T): both directions ride one
+    ``lstm_multi`` call (the reverse one scans the time-flipped input and its
+    states are flipped back), forward states first on the channel axis."""
+    xs = torch.stack([x, x.flip(-1)])
+    w_ih = torch.stack([p["w_ih"], p["w_ih_rev"]])
+    w_hh = torch.stack([p["w_hh"], p["w_hh_rev"]])
+    bias = torch.stack([p["b_ih"] + p["b_hh"], p["b_ih_rev"] + p["b_hh_rev"]])
+    hs = lstm_multi(xs, w_ih, w_hh, bias)
+    return torch.cat([hs[0], hs[1].flip(-1)], dim=1)
+
+
+def seq_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """Dense additive self-attention over (B, C, T) with the reference
+    weights' parameterisation: e[t, s] = Wa . tanh(x_t Wt + x_s Wx + bh) + ba,
+    softmax over s with max subtraction and `eps` added to the denominator.
+    Returns values (B, C, T)."""
+    xt = x.transpose(1, 2)  # (B, T, C)
+    q = xt @ p["Wt"]
+    k = xt @ p["Wx"]
+    h = torch.tanh(q[:, :, None, :] + k[:, None, :, :] + p["bh"])  # (B, T, T, U)
+    e = (h @ p["Wa"])[..., 0] + p["ba"][0]
+    e = torch.exp(e - e.amax(dim=-1, keepdim=True))
+    a = e / (e.sum(dim=-1, keepdim=True) + eps)
+    return (a @ xt).transpose(1, 2)
+
+
+def seq_self_attention_banded(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], attention_width: int, eps: float = 1e-5
+) -> torch.Tensor:
+    """``seq_self_attention`` restricted to its `attention_width` diagonals:
+    width*B*T*U tanh evaluations instead of B*T^2*U. The stabilising max is
+    taken over the band rather than the whole row, which moves the result by
+    O(eps) through the +eps of the denominator. Returns values (B, C, T)."""
+    t = x.shape[-1]
+    xt = x.transpose(1, 2)  # (B, T, C)
+    q = xt @ p["Wt"] + p["bh"]
+    k = xt @ p["Wx"]
+    idx = torch.arange(t, device=x.device)
+    lo = -(attention_width // 2)
+    raws, valids, vals = [], [], []
+    for d in range(lo, lo + attention_width):
+        raw = torch.tanh(q + torch.roll(k, -d, dims=1)) @ p["Wa"] + p["ba"][0]  # (B, T, 1)
+        raws.append(raw[..., 0])
+        valids.append((idx + d >= 0) & (idx + d < t))
+        vals.append(torch.roll(xt, -d, dims=1))
+    raw = torch.stack(raws, dim=-1)  # (B, T, W)
+    valid = torch.stack(valids, dim=-1)[None]  # (1, T, W)
+    neg = torch.full_like(raw, float("-inf"))
+    m = torch.where(valid, raw, neg).amax(dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(raw - m), torch.zeros_like(raw))
+    a = e / (e.sum(dim=-1, keepdim=True) + eps)
+    v = torch.einsum("btw,bwtc->btc", a, torch.stack(vals, dim=1))
+    return v.transpose(1, 2)

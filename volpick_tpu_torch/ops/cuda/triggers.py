@@ -1,0 +1,167 @@
+"""Trigger extraction: the CUDA kernel ``csrc/trigger_extract.cu`` and its
+plain PyTorch twin.
+
+Port of ``volpick_tpu/ops/pallas/triggers.py::trigger_extract_pallas`` (the
+kernel) and of the ``"blocked"``-style scan path of
+``volpick_tpu/ops/triggers.py::extract_triggers_batched`` (the twin). Both
+return ``(peak_idx, peak_val, valid, onset, offset)``, each (B, K), and must
+agree exactly.
+
+``trigger_extract`` takes the twin for a CPU tensor and the kernel for a CUDA
+tensor; there is no other route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from volpick_tpu_torch.ops.cuda import _build
+
+_I32_MAX = 2**31 - 1
+
+launches = 0  # kernel launches made by trigger_extract on CUDA tensors
+
+Picks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _combine(a, c):
+    """Segmented-scan monoid of ``volpick_tpu/ops/triggers.py::_combine``:
+    state (flag, onset, max, argmax); ``a`` covers the earlier samples."""
+    af, a_on, a_m, a_am = a
+    cf, c_on, c_m, c_am = c
+    use_c = c_m > a_m  # strict: the first occurrence of the max wins
+    m = torch.where(use_c, c_m, a_m)
+    am = torch.where(use_c, c_am, a_am)
+    on = torch.minimum(a_on, c_on)
+    return (
+        af | cf,
+        torch.where(cf, c_on, on),
+        torch.where(cf, c_m, m),
+        torch.where(cf, c_am, am),
+    )
+
+
+def _shift_right(state, d: int):
+    """Shift each (B, W) state array right by d, filling with the identity."""
+    fills = (False, _I32_MAX, float("-inf"), 0)
+    out = []
+    for arr, fill in zip(state, fills):
+        shifted = torch.full_like(arr, fill)
+        shifted[:, d:] = arr[:, : arr.shape[1] - d]
+        out.append(shifted)
+    return tuple(out)
+
+
+def _scan(state):
+    """Hillis-Steele inclusive scan along the row: log2(W) shift+combine passes."""
+    w = state[0].shape[1]
+    d = 1
+    while d < w:
+        state = _combine(_shift_right(state, d), state)
+        d *= 2
+    return state
+
+
+def trigger_extract_reference(
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int
+) -> Picks:
+    """Plain PyTorch twin of the kernel, on any device.
+
+    prob (B, W) float32, t1/t2 (B,) float32 per-row thresholds. A segmented
+    scan gives each sample its run's onset, max and argmax; picks are read at
+    the run ends that crossed t1, and the earliest ``max_picks`` per row are
+    kept in time order."""
+    b, w = prob.shape
+    above2 = prob > t2[:, None]
+    above1 = prob > t1[:, None]
+    prev2 = torch.zeros_like(above2)
+    prev2[:, 1:] = above2[:, :-1]
+    next2 = torch.zeros_like(above2)
+    next2[:, :-1] = above2[:, 1:]
+    run_start = above2 & ~prev2
+    run_end = above2 & ~next2
+    pos = torch.arange(w, dtype=torch.int32, device=prob.device).expand(b, w)
+    none = torch.full_like(pos, _I32_MAX)
+    state = (
+        run_start,
+        torch.where(above1 & above2, pos, none),
+        torch.where(above2, prob, torch.full_like(prob, float("-inf"))),
+        pos,
+    )
+    _, onset, run_max, run_argmax = _scan(state)
+    emit = run_end & (onset < _I32_MAX)
+
+    # earliest max_picks emissions per row: the k smallest emitting positions
+    order = torch.where(emit, pos, torch.full_like(pos, w))
+    if max_picks > w:
+        order = torch.cat([order, order.new_full((b, max_picks - w), w)], dim=1)
+    top = torch.topk(order, max_picks, dim=1, largest=False, sorted=True).values
+    valid = top < w
+    safe = torch.where(valid, top, torch.zeros_like(top)).long()
+    take = lambda a: torch.gather(a, 1, safe)
+    neg1 = torch.full_like(top, -1)
+    peak_idx = torch.where(valid, take(run_argmax), neg1)
+    peak_val = torch.where(valid, take(run_max), torch.zeros_like(prob[:, :1]))
+    on_idx = torch.where(valid, take(onset), neg1)
+    off_idx = torch.where(valid, top, neg1)  # the emission position is the run end
+    return peak_idx, peak_val, valid, on_idx, off_idx
+
+
+def _check(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int) -> None:
+    if prob.dim() != 2 or prob.shape[1] < 1:
+        raise ValueError(f"prob must be (B, W) with W >= 1, got {tuple(prob.shape)}")
+    b = prob.shape[0]
+    for name, t in (("prob", prob), ("t1", t1), ("t2", t2)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != prob.device:
+            raise ValueError(f"{name} is on {t.device}, prob on {prob.device}")
+    for name, t in (("t1", t1), ("t2", t2)):
+        if tuple(t.shape) != (b,):
+            raise ValueError(f"{name} must be ({b},), got {tuple(t.shape)}")
+    if max_picks < 1:
+        raise ValueError(f"max_picks must be >= 1, got {max_picks}")
+
+
+def trigger_extract(
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int
+) -> Picks:
+    """Trigger extraction of (B, W) curves with per-row thresholds t1/t2 (B,).
+
+    A CPU tensor goes to ``trigger_extract_reference``; a CUDA tensor
+    launches the kernel (one CTA per row) or raises."""
+    global launches
+    _check(prob, t1, t2, max_picks)
+    if prob.device.type == "cpu":
+        return trigger_extract_reference(prob, t1, t2, max_picks)
+    if prob.device.type != "cuda":
+        raise ValueError(f"trigger_extract runs on cpu or cuda, got {prob.device}")
+    for name, t in (("prob", prob), ("t1", t1), ("t2", t2)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, w = prob.shape
+    fn = _build.function(
+        "trigger_extract_f32",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6,
+    )
+    opts = dict(device=prob.device)
+    peak_idx = torch.empty((b, max_picks), dtype=torch.int32, **opts)
+    peak_val = torch.empty((b, max_picks), dtype=torch.float32, **opts)
+    valid = torch.empty((b, max_picks), dtype=torch.bool, **opts)
+    onset = torch.empty((b, max_picks), dtype=torch.int32, **opts)
+    offset = torch.empty((b, max_picks), dtype=torch.int32, **opts)
+    if b == 0:
+        return peak_idx, peak_val, valid, onset, offset
+    err = fn(
+        prob.data_ptr(), t1.data_ptr(), t2.data_ptr(), b, w, max_picks,
+        peak_idx.data_ptr(), peak_val.data_ptr(), valid.data_ptr(),
+        onset.data_ptr(), offset.data_ptr(),
+        torch.cuda.current_stream(prob.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"trigger_extract_f32 launch failed: cudaError {err}")
+    launches += 1
+    return peak_idx, peak_val, valid, onset, offset

@@ -1,0 +1,197 @@
+"""Where the time of one classify goes, on one CUDA device.
+
+    python -m volpick_tpu_torch.picker.stage_times [--repeats 10] [--out chiprun_out/stage_times.txt]
+
+Runs the bench workload (8 stations x 20 min x 3 components at 100 Hz,
+window 6000, overlap 5500, blinding (500, 500), avg stacking, batch 256)
+through ``WaveformPicker.classify_arrays`` with a seeded random-init
+EQTransformer at the published width, float32, and prints:
+
+- the host-clock time of classify_arrays (median of `repeats` after one
+  warm-up), with the card's name, power limit, SM clock and power draw;
+- CUDA-event times of each stage at the shapes of one step (span
+  conditioning, the EQT forward split into encoder / res-CNN / BiLSTM /
+  transformer / the rest, overlap stacking) and of trigger extraction;
+- one classify_arrays under ``torch.profiler``: the summed device time, the
+  idle share against the unprofiled median, and the top kernels (the full
+  table goes to `--out`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from volpick_tpu_torch.models import load_model
+from volpick_tpu_torch.models.layers import max_pool1d
+from volpick_tpu_torch.ops.signal import condition_windows_from_span
+from volpick_tpu_torch.ops.triggers import extract_triggers_batched
+from volpick_tpu_torch.ops.windows import overlap_stack_uniform
+from volpick_tpu_torch.picker.annotate import WaveformPicker
+
+STATIONS, MINUTES, SR = 8, 20, 100.0
+WINDOW, OVERLAP, BLINDING, BATCH = 6000, 5500, (500, 500), 256
+
+
+def bench_stream_array(seed: int = 0) -> np.ndarray:
+    """(8, 3, 120000) float32: noise plus two P/S-like events per station
+    (the bench workload of ``bench.py``)."""
+    rng = np.random.default_rng(seed)
+    n = int(MINUTES * 60 * SR)
+    data = rng.normal(size=(STATIONS, 3, n)).astype(np.float32) * 0.1
+    t = np.arange(n) / SR
+    for s in range(STATIONS):
+        for p_at in (100.0 + 97 * s, 380.0 + 41 * s):
+            env = np.where(t >= p_at, np.exp(-(t - p_at) / 2.0), 0.0)
+            data[s, 0] += np.sin(2 * np.pi * 8 * t) * env * 2
+            env_s = np.where(t >= p_at + 4, np.exp(-(t - p_at - 4) / 3.0), 0.0)
+            data[s, 1] += np.sin(2 * np.pi * 4 * t) * env_s * 3
+            data[s, 2] += np.sin(2 * np.pi * 4 * t) * env_s * 2.5
+    return data
+
+
+def smi(fields: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repeats", type=int, default=10)
+    ap.add_argument("--out", default="chiprun_out/stage_times.txt")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("stage_times needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = smi("name,power.limit")
+    print(f"card: {card}")
+
+    model = load_model("eqtransformer", seed=0, device=dev)
+    picker = WaveformPicker(model, device=dev)
+    data = bench_stream_array()
+    kw = dict(overlap=OVERLAP, blinding=BLINDING, batch_size=BATCH)
+    curves = picker.annotate_array(data, **kw)
+    thr = {lab: float(np.percentile(curves[:, k], 99.9)) for k, lab in enumerate(["Detection", "P", "S"])}
+    stride = WINDOW - OVERLAP
+    n_uni = len(range(0, data.shape[-1] - WINDOW + 1, stride))  # no flush window here
+    n_windows = STATIONS * n_uni
+
+    # ---- host clock around classify_arrays
+    picker.classify_arrays(data, thr, **kw)
+    times = []
+    for _ in range(args.repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        picker.classify_arrays(data, thr, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(times))
+    print(f"classify_arrays on {card}: ms x{args.repeats} {[round(t, 2) for t in times]}; "
+          f"median {med:.2f} ms = {n_windows / med * 1e3:.1f} windows/s ({n_windows} windows)")
+    print(f"nvidia-smi after the timed runs (clocks.sm, power.draw, temperature): "
+          f"{smi('clocks.sm,power.draw,temperature.gpu')}")
+
+    # ---- per-stage CUDA events at the shapes of one step
+    wpc = BATCH // STATIONS
+    wpc = -(-n_uni // -(-n_uni // wpc))  # balanced windows per step, as _curves does
+    span = (wpc - 1) * stride + WINDOW
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        sp = torch.as_tensor(data[..., :span], device=dev)
+        fr = condition_windows_from_span(sp, wpc, stride, WINDOW, detrend=True, norm="peak")
+        x = fr.reshape(wpc * STATIONS, 3, WINDOW)
+
+        def encoder(h):
+            for conv, pad in zip(model.encoder.convs, model._pool_pads):
+                h = max_pool1d(F.relu(conv.same(h)), 2, padding=pad)
+            return h
+
+        def members(blocks):
+            def run(h):
+                for b in blocks:
+                    h = b(h)
+                return h
+            return run
+
+        stages = [
+            ("encoder", encoder),
+            ("res_cnn", members(model.res_cnn_stack.members)),
+            ("bilstm", members(model.bi_lstm_stack.members)),
+            ("transformer", lambda h: model.transformer_d(model.transformer_d0(h))),
+        ]
+        cond_ms = cuda_ms(lambda: condition_windows_from_span(
+            sp, wpc, stride, WINDOW, detrend=True, norm="peak"))
+        fwd_ms = cuda_ms(lambda: model(x))
+        split, h = {}, x
+        for name, fn in stages:
+            split[name] = cuda_ms(lambda: fn(h))
+            h = fn(h)
+        split["pick LSTM + banded attention + 3 decoders + heads (forward - trunk)"] = (
+            fwd_ms - sum(split.values()))
+        pr = torch.stack(model(x), dim=1).reshape(wpc, STATIONS, 3, WINDOW).movedim(1, 0)
+        stack_ms = cuda_ms(lambda: overlap_stack_uniform(
+            pr, stride, blinding=BLINDING, stacking="avg", return_sums=True))
+        # channel-major rows with per-row thresholds, as classify_arrays batches them
+        flat = torch.as_tensor(curves.transpose(1, 0, 2).reshape(-1, data.shape[-1]), device=dev)
+        rows = torch.as_tensor(np.repeat(list(thr.values()), STATIONS).astype(np.float32), device=dev)
+        k = min(max(32, data.shape[-1] // WINDOW * 4), 4096)
+        trig_ms = cuda_ms(lambda: extract_triggers_batched(flat, rows, max_picks=k))
+    print(f"per step ({wpc * STATIONS} windows, {-(-n_uni // wpc)} steps): condition {cond_ms:.3f} ms, "
+          f"forward {fwd_ms:.3f} ms, stack {stack_ms:.3f} ms; "
+          f"trigger ({flat.shape[0]} x {flat.shape[1]}, K={k}) {trig_ms:.3f} ms")
+    print("forward stages ms: " + ", ".join(f"{n} {v:.3f}" for n, v in split.items()))
+
+    # ---- one classify_arrays under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        picker.classify_arrays(data, thr, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def self_dev(e) -> float:
+        v = getattr(e, "self_device_time_total", None)
+        return float(v if v is not None else e.self_cuda_time_total)
+
+    # sum over the device-side kernel rows only: an op's row repeats the
+    # time of the kernels it launched
+    device_ms = sum(self_dev(e) for e in events if str(e.device_type).endswith("CUDA")) / 1e3
+    print(f"profiled classify_arrays: wall {wall:.2f} ms (profiler on), summed kernel time "
+          f"{device_ms:.2f} ms; idle share against the unprofiled median "
+          f"{max(0.0, 1 - device_ms / med):.3f}")
+    table = events.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=80)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(f"card: {card}\n{table}\n")
+    print("\n".join(table.splitlines()[:14]))
+    print(f"full table: {args.out}")
+
+
+if __name__ == "__main__":
+    main()
