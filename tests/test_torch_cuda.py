@@ -2,9 +2,10 @@
 
 Marked ``cuda``; every test skips when torch sees no CUDA device (decided in
 a fixture, not at import). Run on a GPU machine with
-``python -m pytest tests/test_torch_cuda.py -q``. Tolerances: trigger
-extraction exact; LSTM 1e-5 (the tests/test_pallas.py pin); picker curves
-GPU vs CPU 1e-4 (float32 convolutions reduce in another order on the card).
+``python -m pytest --noconftest tests/test_torch_cuda.py -q``. Tolerances:
+trigger extraction exact; LSTM and MHA 1e-5 (the tests/test_pallas.py pins);
+picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another order
+on the card).
 """
 
 import numpy as np
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from volpick_tpu_torch.models import load_model
+from volpick_tpu_torch.ops.cuda import attention as cuda_attn
 from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
 from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
 from volpick_tpu_torch.picker import WaveformPicker
@@ -94,3 +96,39 @@ def test_picker_gpu_matches_cpu(dev):
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
     assert cuda_trig.launches > before[0] and cuda_lstm.launches > before[1]
     assert sum(int(v[2].sum()) for v in res.values()) > 0
+
+
+@pytest.mark.parametrize("b,d,t,h", [(128, 128, 94, 4), (3, 32, 16, 2), (5, 64, 127, 2),
+                                     (2, 96, 33, 3), (1, 128, 1, 4)])
+def test_mha_matches_twin(dev, b, d, t, h):
+    rng = np.random.default_rng(b + t)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, d, t)).astype(np.float32), device=dev)
+               for _ in range(3))
+    before = cuda_attn.launches
+    got = cuda_attn.mha(q, k, v, h)
+    assert cuda_attn.launches == before + 1
+    assert (got - cuda_attn.mha_reference(q, k, v, h)).abs().max().item() <= 1e-5
+
+
+def test_mha_refuses_shapes_beyond_the_kernel(dev):
+    for shape, h in (((1, 128, 129), 4), ((1, 128, 94), 2)):  # T > 128; Dh = 64 > 32
+        q = torch.zeros(shape, device=dev)
+        with pytest.raises(ValueError):
+            cuda_attn.mha(q, q, q, h)
+    q = torch.zeros(2, 128, 94, device=dev)
+    with pytest.raises(ValueError):
+        cuda_attn.mha(q.transpose(1, 2).contiguous().transpose(1, 2), q, q, 4)
+
+
+def test_tpupicknet_pallas_picker_gpu_matches_cpu(dev):
+    rng = np.random.default_rng(5)
+    data = (rng.normal(size=(2, 3, 5000)) * 0.1).astype(np.float32)
+    data[:, :, 2500:2600] += 2.0 * np.hanning(100).astype(np.float32)
+    margs = dict(in_samples=512, d_model=32, n_heads=2, n_layers=2, attn="pallas")
+    kw = dict(overlap=256, blinding=(50, 50), batch_size=8)
+    gpu = WaveformPicker(load_model("tpupicknet", seed=1, device=dev, **margs), device=dev)
+    cpu = WaveformPicker(load_model("tpupicknet", seed=1, **margs), device="cpu")
+    before = cuda_attn.launches
+    gc = gpu.annotate_array(data, **kw)
+    assert cuda_attn.launches > before and (cuda_attn.launches - before) % 2 == 0
+    np.testing.assert_allclose(gc, cpu.annotate_array(data, **kw), atol=1e-4)

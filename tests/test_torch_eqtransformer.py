@@ -156,7 +156,7 @@ def test_load_model_is_seeded(windows):
         assert torch.equal(v, b.state_dict()[k])
     assert not torch.equal(a.encoder.convs[0].weight, c.encoder.convs[0].weight)
     with pytest.raises(ValueError):
-        load_model("phasenet")
+        load_model("nosuchnet")
 
 
 def test_from_pretrained_reads_json_and_weights(tmp_path, windows):

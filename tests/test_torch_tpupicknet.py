@@ -1,0 +1,224 @@
+"""TPUPickNet of the port and K7's plain twin vs the JAX package.
+
+K7 (``ops/cuda/attention.py``): ``mha`` on a CPU tensor runs the twin
+``mha_reference``, held against the Pallas kernel ``mha_pallas`` in
+interpret mode and against per-head softmax attention in jnp. Tolerance
+1e-5 absolute (the MHA pin of tests/test_pallas.py).
+
+The model: a small TPUPickNet (in_samples 512, d_model 32, 2 heads, 1 layer)
+under both attention routes and one at the published width (3008 samples,
+d_model 128, 4 heads, 4 layers) are initialised by JAX, carried over with
+``models/convert.py`` and run by both packages on the same windows.
+Tolerance 2e-5 absolute on the softmax probabilities (the PhaseNet forward
+pin; matmuls and convolutions sum in another order).
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import volpick_tpu_torch.models.tpupicknet as tpn
+from volpick_tpu.models import TPUPickNet as JaxTPUPickNet
+from volpick_tpu.models import layers as jlayers
+from volpick_tpu.ops.pallas.attention import mha_pallas
+from volpick_tpu.train.model_io import export_pretrained
+from volpick_tpu_torch.models import TPUPickNet, from_pretrained
+from volpick_tpu_torch.models import layers as tlayers
+from volpick_tpu_torch.models.convert import load_npz_v1, tpupicknet_state_dict_from_jax
+from volpick_tpu_torch.ops.cuda import attention as cuda_attn
+from volpick_tpu_torch.picker import WaveformPicker
+
+MHA_ATOL = 1e-5
+ATOL = 2e-5
+SMALL = dict(in_samples=512, d_model=32, n_heads=2, n_layers=1)
+
+
+def _qkv(rng, b, d, t):
+    return [rng.normal(size=(b, d, t)).astype(np.float32) for _ in range(3)]
+
+
+def test_mha_twin_matches_pallas_kernel():
+    """At TPUPickNet's shape, (3, 128, 94) with 4 heads of 32."""
+    q, k, v = _qkv(np.random.default_rng(0), 3, 128, 94)
+    before = cuda_attn.launches
+    got = cuda_attn.mha(*(torch.as_tensor(a) for a in (q, k, v)), 4).numpy()
+    assert cuda_attn.launches == before  # a CPU tensor never reaches the kernel
+    want = np.asarray(mha_pallas(*(jnp.asarray(a) for a in (q, k, v)), 4, interpret=True))
+    assert got.shape == want.shape == (3, 128, 94)
+    np.testing.assert_allclose(got, want, atol=MHA_ATOL)
+
+
+@pytest.mark.parametrize("b,d,t,h", [(2, 32, 16, 2), (1, 96, 33, 3), (2, 64, 127, 2)])
+def test_mha_twin_matches_softmax_attention(b, d, t, h):
+    q, k, v = _qkv(np.random.default_rng(b * t), b, d, t)
+    got = cuda_attn.mha_reference(*(torch.as_tensor(a) for a in (q, k, v)), h).numpy()
+    qh, kh, vh = (jnp.asarray(a).reshape(b, h, d // h, t) for a in (q, k, v))
+    p = jax.nn.softmax(jnp.einsum("bhdt,bhds->bhts", qh, kh), axis=-1)
+    want = np.asarray(jnp.einsum("bhts,bhds->bhdt", p, vh).reshape(b, d, t))
+    np.testing.assert_allclose(got, want, atol=MHA_ATOL)
+
+
+def test_mha_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(2, 64, 10)
+    with pytest.raises(ValueError):
+        cuda_attn.mha(q, q, torch.zeros(2, 64, 11), 2)
+    with pytest.raises(ValueError):
+        cuda_attn.mha(q, q, q, 3)  # 64 channels do not split into 3 heads
+    with pytest.raises(TypeError):
+        cuda_attn.mha(q.double(), q.double(), q.double(), 2)
+    with pytest.raises(ValueError):
+        cuda_attn.mha(q[0], q[0], q[0], 2)
+
+
+def _port_from_jax(jmodel, params, **kw):
+    model = TPUPickNet(**kw)
+    model.load_state_dict(tpupicknet_state_dict_from_jax(params), strict=True)
+    return model.eval()
+
+
+def _windows(n, w, seed=31):
+    x = np.random.default_rng(seed).normal(size=(n, 3, w)).astype(np.float32)
+    return x / np.abs(x).max(axis=-1, keepdims=True)
+
+
+def _perturbed(params, seed):
+    """Biases and layer-norm affines off their init values so they matter."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        if key in ("b", "bias"):
+            return tree + rng.normal(size=tree.shape).astype(np.float32) * 0.05
+        if key == "scale":
+            return tree * rng.uniform(0.7, 1.3, size=tree.shape).astype(np.float32)
+        return tree
+
+    return walk(params)
+
+
+@pytest.fixture(scope="module")
+def small():
+    jmodel = JaxTPUPickNet(**SMALL)
+    params = _perturbed(jax.device_get(jmodel.init(jax.random.PRNGKey(2))), 2)
+    return jmodel, params, _port_from_jax(jmodel, params, **SMALL)
+
+
+def _port(model, x, **kw):
+    with torch.inference_mode():
+        return model(torch.as_tensor(x), **kw).numpy()
+
+
+@pytest.mark.parametrize("attn", ["xla", "pallas"])
+def test_forward_matches_jax_small(small, attn):
+    jmodel, params, port = small
+    x = _windows(3, 512)
+    want = np.asarray(jmodel.apply(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x), attn=attn))
+    got = _port(port, x, attn=attn)
+    assert got.shape == (3, 3, 512)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_forward_matches_jax_at_published_width():
+    jmodel = JaxTPUPickNet()
+    params = _perturbed(jax.device_get(jmodel.init(jax.random.PRNGKey(3))), 3)
+    port = _port_from_jax(jmodel, params)
+    assert (port.in_samples, port.d_model, port.n_heads, port.n_layers, port.n_tokens) == (
+        3008, 128, 4, 4, 94)
+    x = _windows(2, 3008, seed=32)
+    want = np.asarray(jmodel.apply(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x), attn="xla"))
+    for attn in ("xla", "pallas"):
+        got = _port(port, x, attn=attn)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_gelu_is_the_tanh_approximation(small, monkeypatch):
+    """jax.nn.gelu defaults to tanh; torch's default (erf) must not be used:
+    with it the forward leaves the JAX tolerance."""
+    x = np.linspace(-6, 6, 2001).astype(np.float32)
+    got = tpn._gelu(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.nn.gelu(jnp.asarray(x))), atol=1e-6)
+    assert np.abs(F.gelu(torch.as_tensor(x)).numpy() - got).max() > 1e-4
+
+    jmodel, params, port = small
+    w = _windows(2, 512, seed=33)
+    want = np.asarray(jmodel.apply(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(w), attn="xla"))
+    monkeypatch.setattr(tpn, "_gelu", lambda a: F.gelu(a))
+    assert np.abs(_port(port, w, attn="xla") - want).max() > ATOL
+
+
+def test_attn_resolution_and_picker_freeze(monkeypatch):
+    """field > $VOLPICK_TPN_ATTN > "xla", as the JAX resolve_attn; the
+    picker freezes the route when it is built."""
+    monkeypatch.delenv("VOLPICK_TPN_ATTN", raising=False)
+    model = TPUPickNet(**SMALL)
+    assert model.resolve_attn() == "xla"
+    monkeypatch.setenv("VOLPICK_TPN_ATTN", " Pallas ")
+    assert model.resolve_attn() == "pallas"
+    assert TPUPickNet(attn="xla", **SMALL).resolve_attn() == "xla"
+    picker = WaveformPicker(model)
+    assert model.attn == "pallas" and picker.model is model
+    monkeypatch.setenv("VOLPICK_TPN_ATTN", "xla")
+    assert model.resolve_attn() == "pallas"
+    with pytest.raises(ValueError):
+        model(torch.zeros(1, 3, 512), attn="flash")
+    assert picker._default_batch_size() == 128
+
+
+def test_state_dict_names_are_the_npz_keys():
+    jmodel = JaxTPUPickNet(**SMALL)
+    params = jax.device_get(jmodel.init(jax.random.PRNGKey(0)))
+    flat = tpupicknet_state_dict_from_jax(params)
+    port = TPUPickNet(**SMALL).state_dict()
+    assert {k: tuple(v.shape) for k, v in port.items()} == {k: tuple(v.shape) for k, v in flat.items()}
+    assert "blocks.0.qkv.w" in port and "enc.4.b" in port and "pos" in port
+
+
+@pytest.mark.parametrize("legacy", [False, True])
+def test_npz_v1_export_roundtrip(small, tmp_path, legacy):
+    """``export_pretrained`` writes the pair; ``load_npz_v1`` reads it without
+    JAX, also from a legacy file without the ``architecture`` field (the
+    kwargs are sniffed)."""
+    jmodel, params, _ = small
+    d = export_pretrained(jmodel, params, tmp_path, name="tpn", default_args={"S_threshold": 0.2})
+    js = d / "tpn.json.v1"
+    if legacy:
+        meta = json.loads(js.read_text())
+        del meta["architecture"]
+        js.write_text(json.dumps(meta))
+    arch, model = load_npz_v1(js, d / "tpn.npz.v1")
+    assert arch == "tpupicknet" and model.default_args == {"S_threshold": 0.2}
+    assert (model.d_model, model.n_heads, model.n_layers, model.attn) == (32, 2, 1, None)
+    x = _windows(2, 512, seed=34)
+    want = np.asarray(jmodel.apply(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x), attn="xla"))
+    np.testing.assert_allclose(_port(model, x, attn="xla"), want, atol=ATOL)
+    loaded = from_pretrained("tpupicknet", "tpn", search_paths=[str(tmp_path)])
+    np.testing.assert_array_equal(_port(loaded, x, attn="xla"), _port(model, x, attn="xla"))
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("crop_last", [False, True])
+def test_upsample2_conv_matches_jax_and_definition(k, crop_last):
+    rng = np.random.default_rng(k * 2 + crop_last)
+    x = rng.normal(size=(2, 6, 23)).astype(np.float32)
+    w = rng.normal(size=(4, 6, k)).astype(np.float32)
+    b = rng.normal(size=(4,)).astype(np.float32)
+    tx, tw, tb = (torch.as_tensor(a) for a in (x, w, b))
+    got = tlayers.upsample2_conv1d_same(tx, tw, tb, crop_last=crop_last).numpy()
+    want = np.asarray(jlayers.upsample2_conv1d_same(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), crop_last=crop_last))
+    up = tlayers.upsample_nearest(tx, 2)
+    plain = tlayers.conv1d_same(up[..., :-1] if crop_last else up, tw, tb).numpy()
+    assert got.shape == want.shape == plain.shape == (2, 4, 46 - crop_last)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, plain, atol=1e-5)
+    with pytest.raises(ValueError):
+        tlayers.upsample2_conv1d_same(tx, tw[..., :2])

@@ -1,18 +1,43 @@
-"""JAX parameter tree → state dict of the port's EQTransformer.
+"""JAX parameter trees → state dicts of the port's models, and the JAX
+trainer's native ``.npz.v1`` export read without JAX.
 
-The exact inverse of ``volpick_tpu/models/torch_import.py::import_eqtransformer``.
-The JAX tree is already in torch layout (NCW, OIH conv kernels, gate order
-i, f, g, o), so every leaf is copied as is; only the names change. Leaves may
-be numpy arrays or anything ``np.asarray`` accepts (pass the JAX tree through
-``jax.device_get`` first); this module imports no JAX.
+EQTransformer and PhaseNet: the exact inverses of
+``volpick_tpu/models/torch_import.py::import_eqtransformer`` /
+``import_phasenet``. The JAX trees are already in torch layout (NCW, OIH conv
+kernels, gate order i, f, g, o), so leaves are copied as they are and only
+the names change, except PhaseNet's transposed convs: the JAX tree holds them
+transposed and flipped, (O, I, K) reversed in K, and they go back to torch's
+ConvTranspose1d (I, O, K). TPUPickNet's state-dict names are the flattened
+tree paths themselves. Leaves may be numpy arrays or anything ``np.asarray``
+accepts (pass a JAX tree through ``jax.device_get`` first).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from volpick_tpu_torch.models.eqtransformer import EQTransformer, VolEQTransformer
+from volpick_tpu_torch.models.phasenet import PhaseNet
+from volpick_tpu_torch.models.tpupicknet import TPUPickNet
+
+ARCHS = {"phasenet": PhaseNet, "eqtransformer": EQTransformer,
+         "voleqtransformer": VolEQTransformer, "tpupicknet": TPUPickNet}
+
+
+def _tensor(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
+def _bn(sd: Dict[str, torch.Tensor], prefix: str, p: Dict) -> None:
+    sd[f"{prefix}.weight"] = _tensor(p["scale"])
+    sd[f"{prefix}.bias"] = _tensor(p["bias"])
+    sd[f"{prefix}.running_mean"] = _tensor(p["mean"])
+    sd[f"{prefix}.running_var"] = _tensor(p["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
 def eqtransformer_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
@@ -20,18 +45,14 @@ def eqtransformer_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key: str, value) -> None:
-        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+        sd[key] = _tensor(value)
 
     def conv(prefix: str, p: Dict) -> None:
         put(f"{prefix}.weight", p["w"])
         put(f"{prefix}.bias", p["b"])
 
     def bn(prefix: str, p: Dict) -> None:
-        put(f"{prefix}.weight", p["scale"])
-        put(f"{prefix}.bias", p["bias"])
-        put(f"{prefix}.running_mean", p["mean"])
-        put(f"{prefix}.running_var", p["var"])
-        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        _bn(sd, prefix, p)
 
     def lstm(prefix: str, p: Dict, bidirectional: bool = False) -> None:
         for suf, key in (("_l0", ""), ("_l0_reverse", "_rev"))[: 2 if bidirectional else 1]:
@@ -81,3 +102,107 @@ def eqtransformer_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     for k, p in enumerate(params["pick_convs"]):
         conv(f"pick_convs.{k}", p)
     return sd
+
+
+def voleqtransformer_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """``VolEQTransformer.init``-shaped tree → ``VolEQTransformer.load_state_dict`` input."""
+    sd = eqtransformer_state_dict_from_jax(params)
+    for i, p in enumerate(params["decoder_lp"]):
+        sd[f"decoder_lp.convs.{i}.weight"] = _tensor(p["w"])
+        sd[f"decoder_lp.convs.{i}.bias"] = _tensor(p["b"])
+    sd["conv_lp.weight"] = _tensor(params["conv_lp"]["w"])
+    sd["conv_lp.bias"] = _tensor(params["conv_lp"]["b"])
+    return sd
+
+
+def phasenet_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """``PhaseNet.init``-shaped tree → ``PhaseNet.load_state_dict`` input."""
+    sd: Dict[str, torch.Tensor] = {
+        "inc.weight": _tensor(params["inc"]["w"]),
+        "inc.bias": _tensor(params["inc"]["b"]),
+        "out.weight": _tensor(params["out"]["w"]),
+        "out.bias": _tensor(params["out"]["b"]),
+    }
+    _bn(sd, "in_bn", params["in_bn"])
+    for i, stage in enumerate(params["down"]):
+        sd[f"down_branch.{i}.0.weight"] = _tensor(stage["conv_same"]["w"])
+        _bn(sd, f"down_branch.{i}.1", stage["bn1"])
+        if "conv_down" in stage:
+            sd[f"down_branch.{i}.2.weight"] = _tensor(stage["conv_down"]["w"])
+            _bn(sd, f"down_branch.{i}.3", stage["bn2"])
+    for i, stage in enumerate(params["up"]):
+        w = np.asarray(stage["conv_up"]["w"], dtype=np.float32)  # (O, I, K), K reversed
+        sd[f"up_branch.{i}.0.weight"] = _tensor(w[:, :, ::-1].transpose(1, 0, 2))
+        _bn(sd, f"up_branch.{i}.1", stage["bn1"])
+        sd[f"up_branch.{i}.2.weight"] = _tensor(stage["conv_same"]["w"])
+        _bn(sd, f"up_branch.{i}.3", stage["bn2"])
+    return sd
+
+
+def _flatten(tree, prefix: str = "") -> Dict:
+    """Tree → {"a.0.b": leaf}, the key scheme of ``train/model_io.py``."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flatten(sub, f"{prefix}{key}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _flatten(sub, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def _unflatten(flat: Dict) -> Dict:
+    """Inverse of ``_flatten``: all-digit path parts index lists."""
+    root: Dict = {}
+    for key, value in flat.items():
+        node = root
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def tpupicknet_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """``TPUPickNet.init``-shaped tree → ``TPUPickNet.load_state_dict`` input."""
+    return {k: _tensor(v) for k, v in _flatten(params).items()}
+
+
+STATE_DICT_FROM_JAX = {
+    "phasenet": phasenet_state_dict_from_jax,
+    "eqtransformer": eqtransformer_state_dict_from_jax,
+    "voleqtransformer": voleqtransformer_state_dict_from_jax,
+    "tpupicknet": tpupicknet_state_dict_from_jax,
+}
+
+
+def load_npz_v1(json_path, npz_path) -> Tuple[str, torch.nn.Module]:
+    """Read a native pretrained pair written by the JAX trainer's
+    ``train/model_io.py::export_pretrained`` → (arch, model on the CPU in
+    eval mode), loaded with ``strict=True``.
+
+    As ``load_pretrained_npz`` does: the architecture is
+    ``meta["architecture"]``, else sniffed from the kwargs (``d_model`` →
+    TPUPickNet, ``lstm_blocks`` → EQTransformer, else PhaseNet; the two EQT
+    variants share kwargs), and list kwargs become tuples again."""
+    with open(json_path) as f:
+        meta = json.load(f)
+    margs = {k: tuple(v) if isinstance(v, list) else v for k, v in meta.get("model_args", {}).items()}
+    arch = str(meta.get("architecture", "")).lower()
+    if arch not in ARCHS:
+        if "d_model" in margs:
+            arch = "tpupicknet"
+        elif "lstm_blocks" in margs:
+            arch = "eqtransformer"
+        else:
+            arch = "phasenet"
+    model = ARCHS[arch](default_args=dict(meta.get("default_args", {})), **margs)
+    with np.load(npz_path) as data:
+        params = _unflatten({k: data[k] for k in data.files})
+    model.load_state_dict(STATE_DICT_FROM_JAX[arch](params), strict=True)
+    return arch, model.eval()

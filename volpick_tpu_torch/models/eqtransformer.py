@@ -31,6 +31,8 @@ from volpick_tpu_torch.models.layers import (
     seq_self_attention_banded,
     upsample_nearest,
 )
+from volpick_tpu_torch.models.params import Conv, bn, uniform
+from volpick_tpu_torch.models.params import bn_params as _bn_params
 from volpick_tpu_torch.ops.cuda.lstm import lstm_multi
 
 _BN_EPS = 1e-3
@@ -61,39 +63,17 @@ def _decoder_crops(out_samples: int, n_layers: int) -> List[int]:
     return crops
 
 
-def _uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:
-    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
-
-
-class Conv(nn.Module):
-    """Conv1d parameters (weight (O, I, K), bias (O,)); uniform(±sqrt(6/(I*K))) init."""
-
-    def __init__(self, i: int, o: int, k: int, gen: torch.Generator):
-        super().__init__()
-        self.weight = nn.Parameter(_uniform((o, i, k), (6.0 / (i * k)) ** 0.5, gen))
-        self.bias = nn.Parameter(torch.zeros(o))
-
-    def same(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d_same(x, self.weight, self.bias)
-
-
 class Linear(nn.Module):
     """Linear parameters (weight (O, I), bias (O,)); uniform(±bound) init."""
 
     def __init__(self, i: int, o: int, bound: float, gen: torch.Generator):
         super().__init__()
-        self.weight = nn.Parameter(_uniform((o, i), bound, gen))
+        self.weight = nn.Parameter(uniform((o, i), bound, gen))
         self.bias = nn.Parameter(torch.zeros(o))
 
 
 def _bn(c: int) -> nn.BatchNorm1d:
-    # holds scale/bias/running stats under torch's names; applied in eval
-    # form by layers.batch_norm
-    return nn.BatchNorm1d(c, eps=_BN_EPS)
-
-
-def _bn_params(m: nn.BatchNorm1d) -> Dict[str, torch.Tensor]:
-    return {"scale": m.weight, "bias": m.bias, "mean": m.running_mean, "var": m.running_var}
+    return bn(c, _BN_EPS)
 
 
 class LSTMWeights(nn.Module):
@@ -104,8 +84,8 @@ class LSTMWeights(nn.Module):
         super().__init__()
         bound = (1.0 / hid) ** 0.5
         for suf in ("_l0", "_l0_reverse") if bidirectional else ("_l0",):
-            self.register_parameter(f"weight_ih{suf}", nn.Parameter(_uniform((4 * hid, inp), bound, gen)))
-            self.register_parameter(f"weight_hh{suf}", nn.Parameter(_uniform((4 * hid, hid), bound, gen)))
+            self.register_parameter(f"weight_ih{suf}", nn.Parameter(uniform((4 * hid, inp), bound, gen)))
+            self.register_parameter(f"weight_hh{suf}", nn.Parameter(uniform((4 * hid, hid), bound, gen)))
             self.register_parameter(f"bias_ih{suf}", nn.Parameter(torch.zeros(4 * hid)))
             self.register_parameter(f"bias_hh{suf}", nn.Parameter(torch.zeros(4 * hid)))
 
@@ -122,10 +102,10 @@ class LSTMWeights(nn.Module):
 class SeqSelfAttention(nn.Module):
     def __init__(self, c: int, gen: torch.Generator, units: int = 32):
         super().__init__()
-        self.Wx = nn.Parameter(_uniform((c, units), 0.02, gen))
-        self.Wt = nn.Parameter(_uniform((c, units), 0.02, gen))
+        self.Wx = nn.Parameter(uniform((c, units), 0.02, gen))
+        self.Wt = nn.Parameter(uniform((c, units), 0.02, gen))
         self.bh = nn.Parameter(torch.zeros(units))
-        self.Wa = nn.Parameter(_uniform((units, 1), 0.02, gen))
+        self.Wa = nn.Parameter(uniform((units, 1), 0.02, gen))
         self.ba = nn.Parameter(torch.zeros(1))
 
     def params(self) -> Dict[str, torch.Tensor]:
@@ -214,14 +194,14 @@ class _Members(nn.Module):
 class EQTransformer(nn.Module):
     """x (B, 3, in_samples) → (detection, P, S), each (B, in_samples), in [0, 1].
 
+    One detection decoder + head is built per entry of ``detection_branches``
+    (VolEQTransformer adds a second).
+
     Parameters are drawn from ``generator`` (a fresh ``torch.Generator``
     seeded 0 when omitted) with the distributions of the JAX
     ``EQTransformer.init``."""
 
     name = "EQTransformer"
-    filters = (8, 16, 16, 32, 32, 64, 64)
-    kernel_sizes = (11, 9, 7, 7, 5, 5, 3)
-    res_cnn_kernels = (3, 3, 3, 3, 2, 3, 2)
 
     def __init__(
         self,
@@ -235,9 +215,15 @@ class EQTransformer(nn.Module):
         drop_rate: float = 0.1,
         component_order: str = "ZNE",
         default_args: Optional[dict] = None,
+        filters: Tuple[int, ...] = (8, 16, 16, 32, 32, 64, 64),
+        kernel_sizes: Tuple[int, ...] = (11, 9, 7, 7, 5, 5, 3),
+        res_cnn_kernels: Tuple[int, ...] = (3, 3, 3, 3, 2, 3, 2),
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.filters = tuple(filters)
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.res_cnn_kernels = tuple(res_cnn_kernels)
         self.in_channels = in_channels
         self.in_samples = in_samples
         self.classes = classes
@@ -260,18 +246,25 @@ class EQTransformer(nn.Module):
         self.transformer_d0 = Transformer(16, gen)
         self.transformer_d = Transformer(16, gen)
 
-        def decoder():
-            return ConvStack([16] + f[::-1][:-1], f[::-1], ks[::-1], gen)
-
-        self.decoder_d = decoder()
-        self.conv_d = Conv(f[0], 1, 11, gen)
+        for dk, ck in self.detection_branches:
+            setattr(self, dk, self._decoder(gen))
+            setattr(self, ck, Conv(f[0], 1, 11, gen))
         self.pick_lstms = nn.ModuleList(LSTMWeights(16, 16, gen) for _ in phases)
         self.pick_attentions = nn.ModuleList(SeqSelfAttention(16, gen) for _ in phases)
-        self.pick_decoders = nn.ModuleList(decoder() for _ in phases)
+        self.pick_decoders = nn.ModuleList(self._decoder(gen) for _ in phases)
         self.pick_convs = nn.ModuleList(Conv(f[0], 1, 11, gen) for _ in phases)
 
         self._pool_pads = _encoder_pool_paddings(in_samples, len(f))
         self._crops = set(_decoder_crops(in_samples, len(f)))
+
+    @property
+    def detection_branches(self) -> Tuple[Tuple[str, str], ...]:
+        """(decoder, output conv) attribute names per detection head."""
+        return (("decoder_d", "conv_d"),)
+
+    def _decoder(self, gen: torch.Generator) -> ConvStack:
+        f, ks = list(self.filters), list(self.kernel_sizes)
+        return ConvStack([16] + f[::-1][:-1], f[::-1], ks[::-1], gen)
 
     def _decode(self, z: torch.Tensor, dec: ConvStack, head: Conv) -> torch.Tensor:
         for i, conv in enumerate(dec.convs):
@@ -292,7 +285,7 @@ class EQTransformer(nn.Module):
         h = self.transformer_d(self.transformer_d0(h))
 
         # both pick LSTMs read the trunk output: one merged recurrence
-        branch_ins = [h]
+        branch_ins = [h for _ in self.detection_branches]
         if len(self.pick_lstms):
             n = len(self.pick_lstms)
             px = lstm_multi(
@@ -305,6 +298,21 @@ class EQTransformer(nn.Module):
                 seq_self_attention_banded(px[i], att.params(), 3, eps=_ATTN_EPS)
                 for i, att in enumerate(self.pick_attentions)
             ]
-        decoders = [self.decoder_d] + list(self.pick_decoders)
-        heads = [self.conv_d] + list(self.pick_convs)
+        decoders = [getattr(self, dk) for dk, _ in self.detection_branches] + list(self.pick_decoders)
+        heads = [getattr(self, ck) for _, ck in self.detection_branches] + list(self.pick_convs)
         return tuple(self._decode(z, d, c) for z, d, c in zip(branch_ins, decoders, heads))
+
+
+class VolEQTransformer(EQTransformer):
+    """EQTransformer with a second detection head: x → (rg_detection,
+    lp_detection, P, S), regular (VT) and long-period events.
+
+    Port of ``volpick_tpu/models/eqtransformer.py::VolEQTransformer``: the
+    shared trunk feeds ``decoder_d``/``conv_d`` and ``decoder_lp``/``conv_lp``
+    plus the P/S branches."""
+
+    name = "VolEQTransformer"
+
+    @property
+    def detection_branches(self) -> Tuple[Tuple[str, str], ...]:
+        return (("decoder_d", "conv_d"), ("decoder_lp", "conv_lp"))

@@ -21,12 +21,13 @@ def conv1d(
     x: torch.Tensor,
     w: torch.Tensor,
     b: Optional[torch.Tensor] = None,
+    stride: int = 1,
     padding: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """1D convolution, (B, I, W) x (O, I, K) → (B, O, W'), explicit (left, right) pad."""
     if padding != (0, 0):
         x = F.pad(x, padding)
-    return F.conv1d(x, w, b)
+    return F.conv1d(x, w, b, stride=stride)
 
 
 def conv1d_same(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -35,6 +36,52 @@ def conv1d_same(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = No
     padding="same" puts the extra sample on the left instead."""
     k = w.shape[-1]
     return conv1d(x, w, b, padding=((k - 1) // 2, k // 2))
+
+
+def upsample2_conv1d_same(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    crop_last: bool = False,
+) -> torch.Tensor:
+    """``conv1d_same(upsample_nearest(x, 2)[..., :-1 if crop_last else None], w, b)``
+    as two polyphase convs at input resolution (odd kernels only).
+
+    Output parity r reads ``out[2i+r] = sum_j w[j] x[(2i+r+j-p)//2]``, so taps
+    that floor to the same input index are summed into one. ``crop_last``
+    takes the even-length result to 2T-1 samples and removes what the
+    phantom last copy of x[T-1] added to the final (k-1)//2 outputs."""
+    k = w.shape[-1]
+    if k % 2 == 0:
+        raise ValueError("upsample2_conv1d_same supports odd kernels only")
+    p = (k - 1) // 2
+    t = x.shape[-1]
+    outs = []
+    for r in (0, 1):
+        d_vals = [(r + j - p) // 2 for j in range(k)]
+        d_min, d_max = d_vals[0], d_vals[-1]
+        wk = w.new_zeros(w.shape[:-1] + (d_max - d_min + 1,))
+        for j, d in enumerate(d_vals):
+            wk[..., d - d_min] += w[..., j]
+        outs.append(conv1d(x, wk, padding=(-d_min, d_max)))
+    y = torch.stack(outs, dim=-1).reshape(x.shape[0], w.shape[0], 2 * t)
+    if crop_last:
+        y = y[..., : 2 * t - 1]
+        if p > 0:
+            # position m of the last p used tap 2p - m on x[T-1]
+            corr = torch.einsum("bi,oip->bop", x[..., t - 1], w[..., p + 1 :].flip(-1))
+            y = torch.cat([y[..., : 2 * t - 1 - p], y[..., 2 * t - 1 - p :] - corr], dim=-1)
+    if b is not None:
+        y = y + b[None, :, None]
+    return y
+
+
+def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int = 0) -> torch.Tensor:
+    """Transposed conv with a torch ConvTranspose1d weight (I, O, K), no bias:
+    output length (L-1)*stride + K - 2*padding. The JAX package stores the
+    same kernel transposed and flipped for an input-dilated conv
+    (``volpick_tpu/models/torch_import.py``); ``models/convert.py`` undoes that."""
+    return F.conv_transpose1d(x, w, stride=stride, padding=padding)
 
 
 def batch_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], eps: float = 1e-3) -> torch.Tensor:

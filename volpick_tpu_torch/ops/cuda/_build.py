@@ -1,8 +1,9 @@
 """Build the port's hand-written CUDA kernels with nvcc and bind them via ctypes.
 
 Every ``volpick_tpu_torch/csrc/*.cu`` file is compiled for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, so the build
-takes seconds (no PyTorch headers). The library lands in
+(``sm_90a``) by its own ``nvcc``, all started together, and the objects are
+linked into ONE shared library with a plain C interface, so the build takes
+seconds (no PyTorch headers). The library lands in
 ``build/volpick_tpu_torch/`` beside the package, named by a hash of the
 sources and flags: a changed source builds anew, an unchanged one loads the
 existing file. The build happens on first use, never at import.
@@ -30,7 +31,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "volpick_tpu_torch"
 # -Xptxas -v only prints registers / shared memory / spills per kernel.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -65,23 +66,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvolpick_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: Sequence[Sequence[str]]) -> str:
+    """Run the commands in parallel; their joined output, or raise with the
+    output of every command that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed (exit {p.returncode}): {' '.join(c)}\n{o}"
+              for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it already exists."""
+    """Compile csrc/*.cu into the shared library unless it already exists:
+    one nvcc per source in parallel, then one link."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(sources, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]])
+    except RuntimeError as e:
+        build_log = str(e)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{build_log}"
-        )
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    build_log = log
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 

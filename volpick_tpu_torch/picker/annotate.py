@@ -6,6 +6,9 @@ surface the reference documents):
     picker = WaveformPicker(load_model("eqtransformer"), device="cuda")
     output = picker.classify(stream, overlap=5500, blinding=(500, 500), batch_size=256)
 
+The model is any of the registry's: EQTransformer, VolEQTransformer (two
+detection heads), PhaseNet and TPUPickNet (P/S/N softmax curves).
+
 Per station batch (S, C, W_total) on the device:
 1. frame the stream into windows at stride = window - overlap, plus one
    window flush with the stream end when the grid does not end there;
@@ -67,8 +70,13 @@ class WaveformPicker:
         self.device = device
         self.model = model.to(device).eval()
         # EQT conditions windows by detrend, PhaseNet by demean (reference
-        # `volpick/model/models.py:263,664`)
+        # `volpick/model/models.py:263,664`). The rule is the JAX picker's,
+        # name for name: VolEQTransformer windows are demeaned.
         self.detrend = detrend if detrend is not None else model.name == "EQTransformer"
+        # freeze an env-selected model route (TPUPickNet's attn) now, so a
+        # later change of the environment does not switch it mid-run
+        if hasattr(model, "resolve_attn"):
+            model.attn = model.resolve_attn()
 
     @property
     def in_samples(self) -> int:
@@ -76,6 +84,8 @@ class WaveformPicker:
 
     def _prob_channels(self) -> List[str]:
         """Output channel names in prediction order."""
+        if self.model.name == "VolEQTransformer":
+            return ["Detection_rg", "Detection_lp", "P", "S"]
         if self.model.name == "EQTransformer":
             return ["Detection", "P", "S"]
         return list(self.model.phases)
@@ -104,7 +114,7 @@ class WaveformPicker:
     def _apply_model(self, frames: torch.Tensor) -> torch.Tensor:
         """Conditioned (N, C, window) windows → (N, K, window) float32 probabilities."""
         out = self.model(frames)
-        if isinstance(out, tuple):  # EQT: per-head (N, window) outputs
+        if isinstance(out, tuple):  # EQT family: per-head (N, window) outputs
             out = torch.stack(out, dim=1)
         return out.float()
 
@@ -406,13 +416,14 @@ class WaveformPicker:
         is trigger_onset(prob, thr, thr/2) plus the in-trigger argmax
         (reference `volpick/model/eval_taks0.py:46-56`)."""
         d = self.model.default_args
+        det = detection_threshold if detection_threshold is not None else d.get("detection_threshold", 0.3)
         thresholds = {
             "P": P_threshold if P_threshold is not None else d.get("P_threshold", 0.3),
             "S": S_threshold if S_threshold is not None else d.get("S_threshold", 0.3),
-            "Detection": (
-                detection_threshold if detection_threshold is not None
-                else d.get("detection_threshold", 0.3)
-            ),
+            "Detection": det,
+            # VolEQTransformer's per-type detection heads share the threshold
+            "Detection_rg": det,
+            "Detection_lp": det,
             "N": 2.0,  # the noise channel never triggers
         }
         picks = PickList()

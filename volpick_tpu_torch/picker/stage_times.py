@@ -78,6 +78,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def self_device_us(event) -> float:
+    """Device time (us) of a ``key_averages()`` row itself, excluding children."""
+    v = getattr(event, "self_device_time_total", None)
+    return float(v if v is not None else event.self_cuda_time_total)
+
+
+def profiled(fn):
+    """Run fn() once under ``torch.profiler`` → (host-clock ms with the
+    profiler on, summed kernel ms, ``key_averages()``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # sum over the device-side kernel rows only: an op's row repeats the
+    # time of the kernels it launched
+    device_ms = sum(self_device_us(e) for e in events if str(e.device_type).endswith("CUDA")) / 1e3
+    return wall, device_ms, events
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repeats", type=int, default=10)
@@ -165,23 +189,7 @@ def main() -> None:
     print("forward stages ms: " + ", ".join(f"{n} {v:.3f}" for n, v in split.items()))
 
     # ---- one classify_arrays under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        picker.classify_arrays(data, thr, **kw)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-
-    def self_dev(e) -> float:
-        v = getattr(e, "self_device_time_total", None)
-        return float(v if v is not None else e.self_cuda_time_total)
-
-    # sum over the device-side kernel rows only: an op's row repeats the
-    # time of the kernels it launched
-    device_ms = sum(self_dev(e) for e in events if str(e.device_type).endswith("CUDA")) / 1e3
+    wall, device_ms, events = profiled(lambda: picker.classify_arrays(data, thr, **kw))
     print(f"profiled classify_arrays: wall {wall:.2f} ms (profiler on), summed kernel time "
           f"{device_ms:.2f} ms; idle share against the unprofiled median "
           f"{max(0.0, 1 - device_ms / med):.3f}")
