@@ -9,8 +9,20 @@
 3. holds each kernel against its plain PyTorch twin on the card, at the
    shapes of the main paths, and times kernel and twin with CUDA events:
    K1 trigger_extract at (24, 120000), K = 80, exactly equal; K2 lstm_multi
-   at G=2, B=232, C in {64, 16}, H=16, T=47 within 1e-5; K7 mha at
-   (128, 128, 94), 4 heads (TPUPickNet's batch-128 step) within 1e-5;
+   at G=2, B=232, C in {64, 16}, H=16, T=47 within 1e-5; K3 trigger_scan at
+   (24, 120000), exactly equal in all three outputs; K4 condition_windows at
+   (232, 3, 6000) over detrend x norm within 2e-5; K5 addattn at x
+   (232, 16, 47), q / k (232, 47, 32) within 1e-5, at the model's scale and
+   at one that saturates tanh; K7 mha at (128, 128, 94), 4 heads
+   (TPUPickNet's batch-128 step) within 1e-5; K6 res_cnn_stack at
+   (232, 64, 47) within 3e-4 of its twin and of the model's res-CNN section,
+   fed the encoder's output for the bench stream's steps (phase 4b). Beside
+   each kernel it prints the least time the card could take for the same
+   work (bytes over 3.35 TB/s, float32 operations over 67 TFLOP/s,
+   transcendentals over the special-function units' 67 / 16 T/s; the largest
+   of the three) and, for K2 and K7, the time of the one PyTorch call that
+   computes the same function (torch.nn.LSTM(bidirectional=True),
+   F.scaled_dot_product_attention): yardsticks only, the port calls neither;
 4. drives every ported picker at full width with seeded random weights on
    the bench stream (8 stations x 20 min at 100 Hz) through
    WaveformPicker.classify, with the launch counts set to 0 just before and
@@ -20,9 +32,21 @@
    - TPUPickNet (3008 samples, d_model 128, 4 heads, 4 layers; overlap 1504,
      batch 128), once with attn="xla" and once with attn="pallas" (K7);
    - VolEQTransformer (EQTransformer's settings);
+   - EQTransformer on its opt-in route ("eqtransformer/optin"):
+     fused="plstm+bandattn+pattn", WaveformPicker(use_pallas=True) and
+     VOLPICK_TRIGGER_METHOD=pallas (set for this path only);
    each must pick and launch exactly the kernels of its path (K1 once a
-   call; K2 4 times a forward on the EQT family; K7 n_layers times a forward
-   under "pallas", never otherwise);
+   call, on the opt-in route K3 instead; K2 4 times a forward on the EQT
+   family; K7 n_layers times a forward under "pallas"; on the opt-in route
+   K5 twice a forward and K4 once a forward; never otherwise). The opt-in
+   route's curves must lie within 1e-4 of the default EQTransformer path's
+   (same weights), and on them method="pallas" must give exactly the picks
+   of method="pallas_full";
+4b. runs K6 over the 8 steps of the bench stream (counts set to 0 before,
+   read after): conditioned windows through the full-width model's encoder,
+   then the kernel against the model's seven res-CNN modules (BatchNorm
+   statistics set away from (0, 1) from the seed). K6 is wired into no
+   forward, as in the JAX package;
 5. times classify_arrays on each (median of 5, windows/s; the window count
    includes the flush window) and sums its kernel time in one call under
    torch.profiler, and times TPUPickNet's two attention routes once more on
@@ -36,29 +60,66 @@ are a JSON summary of the kernels and {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 TRIG_ROWS, TRIG_W, TRIG_K = 24, 120_000, 80
 LSTM_G, LSTM_B, LSTM_H, LSTM_T = 2, 232, 16, 47
 MHA_B, MHA_D, MHA_T, MHA_H = 128, 128, 94, 4
+COND_N, COND_C, COND_W = 232, 3, 6000
+ATT_B, ATT_C, ATT_T, ATT_U = 232, 16, 47, 32
+RES_B, RES_C, RES_T = 232, 64, 47
 LSTM_TOL, MHA_TOL, CURVE_TOL = 1e-5, 1e-5, 1e-4
+COND_TOL, ATT_TOL, RES_TOL = 2e-5, 1e-5, 3e-4
 
-# (label, arch, model kwargs, overlap, blinding, batch)
+# H100 SXM data sheet: device memory rate, float32 rate outside the tensor
+# cores, and the special-function units (16 a clock an SM against 128 float32
+# lanes doing a multiply-add each: 67e12 / 2 / 8)
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+PEAK_SFU = PEAK_F32 / 16
+
+OPTIN = "eqtransformer/optin"
+# (label, arch, model kwargs, picker kwargs, environment, overlap, blinding, batch)
 PATHS = [
-    ("eqtransformer", "eqtransformer", {}, 5500, (500, 500), 256),
-    ("phasenet", "phasenet", {}, 1500, (0, 0), 256),
-    ("tpupicknet/xla", "tpupicknet", {"attn": "xla"}, 1504, (0, 0), 128),
-    ("tpupicknet/pallas", "tpupicknet", {"attn": "pallas"}, 1504, (0, 0), 128),
-    ("voleqtransformer", "voleqtransformer", {}, 5500, (500, 500), 256),
+    ("eqtransformer", "eqtransformer", {}, {}, {}, 5500, (500, 500), 256),
+    ("phasenet", "phasenet", {}, {}, {}, 1500, (0, 0), 256),
+    ("tpupicknet/xla", "tpupicknet", {"attn": "xla"}, {}, {}, 1504, (0, 0), 128),
+    ("tpupicknet/pallas", "tpupicknet", {"attn": "pallas"}, {}, {}, 1504, (0, 0), 128),
+    ("voleqtransformer", "voleqtransformer", {}, {}, {}, 5500, (500, 500), 256),
+    (OPTIN, "eqtransformer", {"fused": "plstm+bandattn+pattn"}, {"use_pallas": True},
+     {"VOLPICK_TRIGGER_METHOD": "pallas"}, 5500, (500, 500), 256),
 ]
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def bound(n_bytes: float, flops: float = 0.0, sfu: float = 0.0):
+    """(ms, "bytes" | "operations"): the least time the card could take, each
+    input byte read once and each output byte written once, float32
+    operations at the non-tensor-core rate and transcendentals (tanh, exp,
+    sigmoid) one each at the special-function units' rate."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = max(flops / PEAK_F32, sfu / PEAK_SFU)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def conditioning_rows(rng, n, c, w) -> np.ndarray:
+    """Unit-variance noise on an offset and a straight line 20 to 30 times larger."""
+    t = np.linspace(-1.0, 1.0, w)
+    x = rng.normal(size=(n, c, w))
+    x += rng.uniform(-20, 20, (n, c, 1)) + rng.uniform(-30, 30, (n, c, 1)) * t
+    return x.astype(np.float32)
 
 
 def trigger_curves(rng) -> np.ndarray:
@@ -111,9 +172,14 @@ def main() -> None:
 
     from volpick_tpu_torch.models import load_model
     from volpick_tpu_torch.ops.cuda import _build
+    from volpick_tpu_torch.ops.cuda import addattn as cuda_addattn
     from volpick_tpu_torch.ops.cuda import attention as cuda_attn
+    from volpick_tpu_torch.ops.cuda import conditioning as cuda_cond
     from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
+    from volpick_tpu_torch.ops.cuda import rescnn as cuda_rescnn
     from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
+    from volpick_tpu_torch.ops.signal import condition_windows_from_span
+    from volpick_tpu_torch.ops.triggers import extract_triggers_batched
     from volpick_tpu_torch.ops.windows import window_starts
     from volpick_tpu_torch.picker import UTC, Stream, Trace, WaveformPicker
     from volpick_tpu_torch.picker.stage_times import (
@@ -156,9 +222,55 @@ def main() -> None:
           f"in all five outputs; picks per row {n_valid}")
     trig_ms = cuda_ms(lambda: cuda_trig.trigger_extract(prob, t1, t2, TRIG_K))
     trig_plain_ms = cuda_ms(lambda: cuda_trig.trigger_extract_reference(prob, t1, t2, TRIG_K), iters=5)
-    print(f"K1 time on {card}: kernel {trig_ms:.4f} ms, twin {trig_plain_ms:.4f} ms")
+    # a handful of compares and selects a sample
+    trig_bound = bound(nbytes(prob, t1, t2, *got), flops=8 * prob.numel())
+    print(f"K1 time on {card}: kernel {trig_ms:.4f} ms, twin {trig_plain_ms:.4f} ms, bound "
+          f"{trig_bound[0]:.4f} ms ({trig_bound[1]}), no library call computes it")
 
-    lstm_err, lstm_ms = 0.0, {}
+    # K3: the same curves, the scanned state at every position
+    scan_got = cuda_trig.trigger_scan(prob, t1, t2)
+    scan_want = cuda_trig.trigger_scan_reference(prob, t1, t2)
+    torch.cuda.synchronize()
+    scan_err = 0.0
+    for field, g, w in zip(("onset", "max", "argmax"), scan_got, scan_want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            fail(f"trigger_scan {field} differs from its twin")
+        scan_err = max(scan_err, float((g.double() - w.double()).abs().max()))
+    for method in ("pallas", "shift"):
+        for g, w in zip(extract_triggers_batched(prob, t1, t2, TRIG_K, method=method), got):
+            if not torch.equal(g, w):
+                fail(f'method="{method}" picks differ from "pallas_full"')
+    scan_ms = cuda_ms(lambda: cuda_trig.trigger_scan(prob, t1, t2))
+    scan_plain_ms = cuda_ms(lambda: cuda_trig.trigger_scan_reference(prob, t1, t2), iters=5)
+    scan_bound = bound(nbytes(prob, t1, t2, *scan_got), flops=8 * prob.numel())
+    print(f"K3 trigger_scan ({TRIG_ROWS}, {TRIG_W}): equal to twin in all three outputs; "
+          f'methods "pallas" and "shift" give the picks of "pallas_full"; time on {card}: kernel '
+          f"{scan_ms:.4f} ms, twin {scan_plain_ms:.4f} ms, bound {scan_bound[0]:.4f} ms "
+          f"({scan_bound[1]}), no library call computes it")
+
+    # K4: rows with an offset and a trend far larger than the signal
+    xc = torch.as_tensor(conditioning_rows(rng, COND_N, COND_C, COND_W), device=dev)
+    cond_err, cond_ms, cond_plain_ms = 0.0, {}, {}
+    for detrend in (True, False):
+        for norm in ("peak", "std"):
+            kw_c = dict(detrend=detrend, norm=norm)
+            err = float((cuda_cond.condition_windows(xc, **kw_c)
+                         - cuda_cond.condition_windows_reference(xc, **kw_c)).abs().max())
+            if not err <= COND_TOL:
+                fail(f"condition_windows {kw_c} max abs err {err} > {COND_TOL}")
+            cond_err = max(cond_err, err)
+            cond_ms[detrend, norm] = cuda_ms(lambda: cuda_cond.condition_windows(xc, **kw_c))
+            cond_plain_ms[detrend, norm] = cuda_ms(
+                lambda: cuda_cond.condition_windows_reference(xc, **kw_c), iters=10)
+            print(f"K4 condition_windows ({COND_N}, {COND_C}, {COND_W}) detrend={detrend} "
+                  f"norm={norm}: max abs err {err:.3e} (tol {COND_TOL}); kernel "
+                  f"{cond_ms[detrend, norm]:.4f} ms, twin {cond_plain_ms[detrend, norm]:.4f} ms")
+    cond_bound = bound(2 * nbytes(xc), flops=10 * xc.numel())
+    print(f"K4 time on {card} (detrend, peak: EQTransformer's): kernel {cond_ms[True, 'peak']:.4f} "
+          f"ms, twin {cond_plain_ms[True, 'peak']:.4f} ms, bound {cond_bound[0]:.4f} ms "
+          f"({cond_bound[1]}), no library call computes it")
+
+    lstm_err, lstm_ms, lstm_bound, lstm_lib_ms = 0.0, {}, {}, {}
     for c in (64, 16):  # one forward: BiLSTM 1 at C=64; BiLSTM 2-3 and the pick LSTMs at C=16
         xs = torch.as_tensor(rng.normal(size=(LSTM_G, LSTM_B, c, LSTM_T)).astype(np.float32), device=dev)
         w_ih = torch.as_tensor((rng.uniform(-0.25, 0.25, (LSTM_G, 4 * LSTM_H, c))).astype(np.float32), device=dev)
@@ -174,6 +286,19 @@ def main() -> None:
               f"{err:.3e} (tol {LSTM_TOL}); time on {card}: kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms")
         lstm_err = max(lstm_err, err)
         lstm_ms[c] = (k_ms, p_ms)
+        n_cell = LSTM_G * LSTM_B * LSTM_T * LSTM_H
+        lstm_bound[c] = bound(
+            nbytes(xs, w_ih, w_hh, bias) + n_cell * 4,
+            flops=2 * n_cell * 4 * (c + LSTM_H) + 10 * n_cell, sfu=5 * n_cell)
+        # the yardstick: the merged pair is a forward and a time-reversed
+        # recurrence, which is what one bidirectional nn.LSTM computes
+        lib = torch.nn.LSTM(c, LSTM_H, bidirectional=True).to(dev).eval()
+        seq = xs[0].permute(2, 0, 1).contiguous()  # (T, B, C)
+        with torch.no_grad():
+            lstm_lib_ms[c] = cuda_ms(lambda: lib(seq))
+        print(f"K2 C={c}: bound {lstm_bound[c][0]:.4f} ms ({lstm_bound[c][1]}); "
+              f"torch.nn.LSTM(bidirectional=True) on (T {LSTM_T}, B {LSTM_B}, C {c}) "
+              f"{lstm_lib_ms[c]:.4f} ms")
 
     # q scaled as TPUPickNet scales it (1/sqrt(Dh)), so the scores have the
     # model's spread
@@ -194,6 +319,41 @@ def main() -> None:
           f"{float((mha_twin - mha_f64).abs().max()):.3e}; time on {card}: kernel {mha_ms:.4f} ms, "
           f"twin {mha_plain_ms:.4f} ms")
 
+    n_score = MHA_B * MHA_H * MHA_T * MHA_T
+    mha_bound = bound(nbytes(q, k, v, mha_out), flops=(4 * MHA_D // MHA_H + 4) * n_score,
+                      sfu=n_score)
+    # the yardstick, (B, H, T, Dh) operands laid out before the clock starts;
+    # q carries the scale already
+    qs, ks, vs = (a.reshape(MHA_B, MHA_H, MHA_D // MHA_H, MHA_T).transpose(2, 3).contiguous()
+                  for a in (q, k, v))
+    mha_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), iters=50)
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0).transpose(2, 3).reshape(q.shape)
+    print(f"K7: bound {mha_bound[0]:.4f} ms ({mha_bound[1]}); F.scaled_dot_product_attention "
+          f"{mha_lib_ms:.4f} ms (max abs diff to the kernel {float((sdpa - mha_out).abs().max()):.3e})")
+
+    # K5: q and k as the model's projections scale them, then saturating tanh
+    xa = torch.as_tensor(rng.normal(size=(ATT_B, ATT_C, ATT_T)).astype(np.float32), device=dev)
+    wa = torch.as_tensor(rng.uniform(-0.3, 0.3, ATT_U).astype(np.float32), device=dev)
+    att_err = 0.0
+    for scale in (0.5, 20.0):
+        qa, ka = (torch.as_tensor((rng.normal(size=(ATT_B, ATT_T, ATT_U)) * scale).astype(np.float32),
+                                  device=dev) for _ in range(2))
+        err = float((cuda_addattn.addattn(xa, qa, ka, wa)
+                     - cuda_addattn.addattn_reference(xa, qa, ka, wa)).abs().max())
+        print(f"K5 addattn x ({ATT_B}, {ATT_C}, {ATT_T}) q/k ({ATT_B}, {ATT_T}, {ATT_U}) at scale "
+              f"{scale}: max abs err {err:.3e} (tol {ATT_TOL})")
+        if not err <= ATT_TOL:
+            fail(f"addattn at scale {scale} max abs err {err} > {ATT_TOL}")
+        att_err = max(att_err, err)
+        if scale == 0.5:
+            att_ms = cuda_ms(lambda: cuda_addattn.addattn(xa, qa, ka, wa))
+            att_plain_ms = cuda_ms(lambda: cuda_addattn.addattn_reference(xa, qa, ka, wa))
+    n_pair = ATT_B * ATT_T * ATT_T
+    att_bound = bound(nbytes(xa, qa, ka, wa, xa), flops=n_pair * (3 * ATT_U + 2 * ATT_C + 4),
+                      sfu=n_pair * (ATT_U + 1))
+    print(f"K5 time on {card}: kernel {att_ms:.4f} ms, twin {att_plain_ms:.4f} ms, bound "
+          f"{att_bound[0]:.4f} ms ({att_bound[1]}), no library call computes it")
+
     # ---- 4-6. every picker at full width on the bench stream
     data = bench_stream_array(seed=0)
     t_start = UTC("2024-06-01T00:00:00")
@@ -203,11 +363,27 @@ def main() -> None:
         for s in range(STATIONS) for ci, comp in enumerate("ZNE")
     ])
     cut = np.ascontiguousarray(data[:1, :, : int(5 * 60 * SR)])
-    counters = {"trigger_extract": cuda_trig, "lstm_multi": cuda_lstm, "mha": cuda_attn}
-    by_path, rates, thresholds_of, device_of = {}, {}, {}, {}
-    for label, arch, margs, overlap, blinding, batch in PATHS:
+    # kernel name -> (module, its launch counter)
+    counters = {
+        "trigger_extract": (cuda_trig, "launches"), "lstm_multi": (cuda_lstm, "launches"),
+        "trigger_scan": (cuda_trig, "scan_launches"), "conditioning": (cuda_cond, "launches"),
+        "addattn": (cuda_addattn, "launches"), "rescnn": (cuda_rescnn, "launches"),
+        "mha": (cuda_attn, "launches"),
+    }
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {kn: getattr(mod, attr) for kn, (mod, attr) in counters.items()}
+
+    by_path, rates, thresholds_of, device_of, curves_of, optin_kernel_ms = {}, {}, {}, {}, {}, {}
+    for label, arch, margs, pkw, env, overlap, blinding, batch in PATHS:
+        saved_env = {k_: os.environ.get(k_) for k_ in env}
+        os.environ.update(env)
         model = load_model(arch, seed=0, device=dev, **margs)
-        picker = WaveformPicker(model, device=dev)
+        picker = WaveformPicker(model, device=dev, **pkw)
         kw = dict(overlap=overlap, blinding=blinding, batch_size=batch)
         channels = picker._prob_channels()
         curves = picker.annotate_array(data, **kw)
@@ -219,23 +395,31 @@ def main() -> None:
             "eqtransformer") else None
         forwards = [0]
         hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
-        for mod in counters.values():
-            mod.launches = 0
+        curves_of[label] = curves
+        zero_counts()
         out = picker.classify(stream, P_threshold=thr["P"], S_threshold=thr["S"],
                               detection_threshold=det, **kw)
         torch.cuda.synchronize()
-        launches = {kn: mod.launches for kn, mod in counters.items()}
+        launches = read_counts()
         hook.remove()
         n_fwd = forwards[0]
         by_path[label] = launches
         print(f"{label}: classify {len(out.picks)} picks, {len(out.detections)} detections, "
               f"{n_fwd} forwards; launches {launches}; thresholds {thr}")
+        # one classify_arrays a classify (the stations have one length); one
+        # conditioning launch a forward (a step, or the flush window)
+        optin = label == OPTIN
         want = {
+            "trigger_extract": 0 if optin else 1,
+            "trigger_scan": 1 if optin else 0,
+            "conditioning": n_fwd if optin else 0,
+            "addattn": 2 * n_fwd if optin else 0,
             "lstm_multi": 4 * n_fwd if arch.endswith("eqtransformer") else 0,
             "mha": model.n_layers * n_fwd if margs.get("attn") == "pallas" else 0,
+            "rescnn": 0,
         }
-        if launches["trigger_extract"] < 1 or any(launches[kn] != n for kn, n in want.items()):
-            fail(f"{label}: launches {launches}, want trigger_extract >= 1 and {want}")
+        if n_fwd < 1 or launches != want:
+            fail(f"{label}: launches {launches}, want {want}")
         if len(out.picks) == 0:
             fail(f"{label}: classify returned no picks")
 
@@ -254,17 +438,41 @@ def main() -> None:
         print(f"{label}: nvidia-smi after the timed runs: "
               + smi("clocks.sm,power.draw,temperature.gpu"))
         _, dev_ms, events = profiled(lambda: picker.classify_arrays(data, thresholds, **kw))
-        k7_ms = sum(self_device_us(e) for e in events if "mha_kernel" in e.key) / 1e3
+        own = {kn: sum(self_device_us(e) for e in events if kn in e.key) / 1e3
+               for kn in ("mha_kernel", "addattn_kernel", "condition_kernel", "trigger_scan_kernel",
+                          "trigger_extract_kernel", "lstm_multi_kernel")}
         device_of[label] = dev_ms
         print(f"{label}: one classify_arrays under torch.profiler: summed kernel time "
-              f"{dev_ms:.2f} ms (K7 mha_kernel {k7_ms:.3f} ms); idle share against the "
-              f"median {max(0.0, 1 - dev_ms / (med * 1e3)):.3f}")
+              f"{dev_ms:.2f} ms (of it "
+              + ", ".join(f"{kn} {ms:.3f} ms" for kn, ms in own.items() if ms > 0)
+              + f"); idle share against the median {max(0.0, 1 - dev_ms / (med * 1e3)):.3f}")
+        if optin:
+            optin_kernel_ms = own
+            for kn in ("addattn_kernel", "condition_kernel", "trigger_scan_kernel"):
+                if not own[kn] > 0:
+                    fail(f"{label}: the profiler saw no {kn}")
+            # same weights as the default EQTransformer path: same curves
+            route_err = float(np.abs(curves - curves_of["eqtransformer"]).max())
+            print(f"{label}: max abs curve diff to the default eqtransformer path "
+                  f"{route_err:.3e} (tol {CURVE_TOL})")
+            if not route_err <= CURVE_TOL:
+                fail(f"{label}: curves differ from the default route by {route_err}")
+            rows = torch.as_tensor(curves.transpose(1, 0, 2).reshape(-1, curves.shape[-1]), device=dev)
+            rthr = torch.as_tensor(np.repeat(np.float32([thresholds[c_] for c_ in channels]), STATIONS),
+                                   device=dev)
+            a_scan = extract_triggers_batched(rows, rthr, max_picks=TRIG_K, method="pallas")
+            a_full = extract_triggers_batched(rows, rthr, max_picks=TRIG_K, method="pallas_full")
+            for g, w in zip(a_scan, a_full):
+                if not torch.equal(g, w):
+                    fail(f'{label}: method="pallas" picks differ from "pallas_full" on its curves')
+            print(f'{label}: method="pallas" equals "pallas_full" on its own curves '
+                  f"({int(a_full[2].sum())} picks in {rows.shape[0]} rows)")
 
         # CPU cross-check on 1 station x 5 min, same weights
         cpu_model = load_model(arch, device="cpu", **margs)
         cpu_model.load_state_dict({k_: v_.cpu() for k_, v_ in model.state_dict().items()}, strict=True)
         gpu_c = picker.annotate_array(cut, **kw)
-        cpu_c = WaveformPicker(cpu_model, device="cpu").annotate_array(cut, **kw)
+        cpu_c = WaveformPicker(cpu_model, device="cpu", **pkw).annotate_array(cut, **kw)
         curve_err = float(np.abs(gpu_c - cpu_c).max())
         print(f"{label}: CPU cross-check (1 x 3 x {cut.shape[-1]}): max abs curve diff "
               f"{curve_err:.3e} (tol {CURVE_TOL})")
@@ -281,9 +489,72 @@ def main() -> None:
             print(f"CPU twin on GPU curves: picks equal ({int(on_cpu[2].sum())} picks)")
         del model, picker, cpu_model
         torch.cuda.empty_cache()
+        for k_, v_ in saved_env.items():
+            if v_ is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v_
+
+    # ---- 4b. K6 on the res-CNN section of the full-width model, every step
+    # of the bench stream (232 windows each), against the model's modules
+    model = load_model("eqtransformer", seed=0, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for blk in model.res_cnn_stack.members:
+            for norm in (blk.norm1, blk.norm2):
+                norm.running_mean.copy_(torch.randn(RES_C, generator=gen) * 0.3)
+                norm.running_var.copy_(torch.rand(RES_C, generator=gen) * 2 + 0.5)
+                norm.weight.copy_(torch.randn(RES_C, generator=gen) * 0.5 + 1)
+                norm.bias.copy_(torch.randn(RES_C, generator=gen) * 0.1)
+    packed = cuda_rescnn.fold_res_cnn_params(model.res_cnn_stack)
+
+    def res_modules(h):
+        for blk in model.res_cnn_stack.members:
+            h = blk(h)
+        return h
+
+    window, stride = model.in_samples, model.in_samples - 5500
+    n_uni = len(window_starts(data.shape[-1], window, 5500))
+    n_steps = -(-n_uni // (256 // STATIONS))
+    wpc = -(-n_uni // n_steps)
+    span = (wpc - 1) * stride + window
+    datap = F.pad(torch.as_tensor(data, device=dev), (0, (n_steps - 1) * wpc * stride + span - data.shape[-1]))
+    res_err = res_twin_err = 0.0
+    zero_counts()
+    with torch.inference_mode():
+        for i in range(n_steps):
+            sp = datap[..., i * wpc * stride : i * wpc * stride + span]
+            fr = condition_windows_from_span(sp, wpc, stride, window, detrend=True, norm="peak")
+            enc = model.encode(fr.reshape(wpc * STATIONS, 3, window)).contiguous()
+            if tuple(enc.shape) != (RES_B, RES_C, RES_T):
+                fail(f"encoder output {tuple(enc.shape)}, want {(RES_B, RES_C, RES_T)}")
+            got_r = cuda_rescnn.res_cnn_stack(enc, packed)
+            res_err = max(res_err, float((got_r - res_modules(enc)).abs().max()))
+            res_twin_err = max(res_twin_err, float(
+                (got_r - cuda_rescnn.res_cnn_stack_reference(enc, packed)).abs().max()))
+        torch.cuda.synchronize()
+        by_path["eqtransformer/res_cnn section"] = read_counts()
+        if by_path["eqtransformer/res_cnn section"]["rescnn"] != n_steps:
+            fail(f"rescnn launched {by_path['eqtransformer/res_cnn section']['rescnn']} times in {n_steps} steps")
+        print(f"K6 res_cnn_stack ({RES_B}, {RES_C}, {RES_T}) on the encoder output of {n_steps} "
+              f"steps: max abs err {res_err:.3e} vs the model's modules, {res_twin_err:.3e} vs twin "
+              f"(tol {RES_TOL})")
+        if not max(res_err, res_twin_err) <= RES_TOL:
+            fail(f"res_cnn_stack max abs err {max(res_err, res_twin_err)} > {RES_TOL}")
+        res_ms = cuda_ms(lambda: cuda_rescnn.res_cnn_stack(enc, packed))
+        res_plain_ms = cuda_ms(lambda: cuda_rescnn.res_cnn_stack_reference(enc, packed))
+        res_mod_ms = cuda_ms(lambda: res_modules(enc))
+    n_bct = RES_B * RES_C * RES_T
+    n_blk = packed["w1"].shape[0]
+    res_bound = bound(2 * nbytes(enc) + nbytes(*packed.values()),
+                      flops=n_bct * n_blk * (2 * 3 * RES_C * 2 + 7))
+    print(f"K6 time on {card}: kernel {res_ms:.4f} ms, twin {res_plain_ms:.4f} ms, the model's "
+          f"seven modules {res_mod_ms:.4f} ms, bound {res_bound[0]:.4f} ms ({res_bound[1]}), "
+          "no library call computes it")
+    del model
 
     # TPUPickNet's attention routes in turns on one model and picker
-    label, arch, _, overlap, blinding, batch = PATHS[3]
+    label, arch, _, _, _, overlap, blinding, batch = PATHS[3]
     model = load_model(arch, seed=0, device=dev)
     picker = WaveformPicker(model, device=dev)
     kw = dict(overlap=overlap, blinding=blinding, batch_size=batch)
@@ -303,24 +574,37 @@ def main() -> None:
           + ", ".join(f"{lab} {r:.1f}" for lab, r in rates.items()))
     print(f"classify_arrays summed kernel ms on {card}: "
           + ", ".join(f"{lab} {ms:.2f}" for lab, ms in device_of.items()))
+    if optin_kernel_ms:
+        print(f"{OPTIN}: summed ms of the route's kernels in one classify_arrays: "
+              + ", ".join(f"{kn} {ms:.3f}" for kn, ms in optin_kernel_ms.items() if ms > 0))
+
+    def entry(name, source, replaces, path, err, ms, plain_ms, bnd, library_ms=None, **extra):
+        return dict({"name": name, "route": "cuda", "source": f"volpick_tpu_torch/csrc/{source}",
+                     "replaces": f"volpick_tpu/ops/pallas/{replaces}",
+                     "launches": by_path[path][name], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "library_ms": library_ms}, **extra)
+
     print(json.dumps({"kernels": [
-        {"name": "trigger_extract", "route": "cuda",
-         "source": "volpick_tpu_torch/csrc/trigger_extract.cu",
-         "replaces": "volpick_tpu/ops/pallas/triggers.py:250",
-         "launches": by_path["eqtransformer"]["trigger_extract"], "max_abs_err": trig_err,
-         "ms": trig_ms, "plain_ms": trig_plain_ms},
-        {"name": "lstm_multi", "route": "cuda",
-         "source": "volpick_tpu_torch/csrc/lstm_multi.cu",
-         "replaces": "volpick_tpu/ops/pallas/lstm.py:76",
-         "launches": by_path["eqtransformer"]["lstm_multi"], "max_abs_err": lstm_err,
-         # one launch at C=64 (ms, plain_ms) and one at C=16 (*_c16)
-         "ms": lstm_ms[64][0], "plain_ms": lstm_ms[64][1],
-         "ms_c16": lstm_ms[16][0], "plain_ms_c16": lstm_ms[16][1]},
-        {"name": "mha", "route": "cuda",
-         "source": "volpick_tpu_torch/csrc/mha.cu",
-         "replaces": "volpick_tpu/ops/pallas/attention.py:55",
-         "launches": by_path["tpupicknet/pallas"]["mha"], "max_abs_err": mha_err,
-         "ms": mha_ms, "plain_ms": mha_plain_ms},
+        entry("trigger_extract", "trigger_extract.cu", "triggers.py:250", "eqtransformer",
+              trig_err, trig_ms, trig_plain_ms, trig_bound),
+        # one launch at C=64 (ms, plain_ms, ...) and one at C=16 (*_c16)
+        entry("lstm_multi", "lstm_multi.cu", "lstm.py:76", "eqtransformer", lstm_err,
+              lstm_ms[64][0], lstm_ms[64][1], lstm_bound[64], lstm_lib_ms[64],
+              ms_c16=lstm_ms[16][0], plain_ms_c16=lstm_ms[16][1], bound_ms_c16=lstm_bound[16][0],
+              bound_by_c16=lstm_bound[16][1], library_ms_c16=lstm_lib_ms[16]),
+        entry("trigger_scan", "trigger_scan.cu", "triggers.py:329", OPTIN, scan_err, scan_ms,
+              scan_plain_ms, scan_bound),
+        # detrend + peak, EQTransformer's conditioning
+        entry("conditioning", "conditioning.cu", "conditioning.py:50", OPTIN, cond_err,
+              cond_ms[True, "peak"], cond_plain_ms[True, "peak"], cond_bound),
+        entry("addattn", "addattn.cu", "addattn.py:52", OPTIN, att_err, att_ms, att_plain_ms,
+              att_bound),
+        # wired into no forward (as in the JAX package): launches are those of phase 4b
+        entry("rescnn", "rescnn.cu", "rescnn.py:112", "eqtransformer/res_cnn section",
+              max(res_err, res_twin_err), res_ms, res_plain_ms, res_bound, modules_ms=res_mod_ms),
+        entry("mha", "mha.cu", "attention.py:55", "tpupicknet/pallas", mha_err, mha_ms,
+              mha_plain_ms, mha_bound, mha_lib_ms),
     ], "launches_by_path": by_path}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -3,9 +3,10 @@
 Marked ``cuda``; every test skips when torch sees no CUDA device (decided in
 a fixture, not at import). Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``. Tolerances:
-trigger extraction exact; LSTM and MHA 1e-5 (the tests/test_pallas.py pins);
-picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another order
-on the card).
+trigger extraction and trigger scan exact; LSTM, MHA and additive attention
+1e-5 (the tests/test_pallas.py pins); conditioning 2e-5; the res-CNN stack
+3e-4; picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another
+order on the card).
 """
 
 import numpy as np
@@ -13,9 +14,13 @@ import pytest
 import torch
 
 from volpick_tpu_torch.models import load_model
+from volpick_tpu_torch.ops.cuda import addattn as cuda_addattn
 from volpick_tpu_torch.ops.cuda import attention as cuda_attn
+from volpick_tpu_torch.ops.cuda import conditioning as cuda_cond
 from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
+from volpick_tpu_torch.ops.cuda import rescnn as cuda_rescnn
 from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
+from volpick_tpu_torch.ops.triggers import extract_triggers_batched
 from volpick_tpu_torch.picker import WaveformPicker
 
 pytestmark = pytest.mark.cuda
@@ -132,3 +137,164 @@ def test_tpupicknet_pallas_picker_gpu_matches_cpu(dev):
     gc = gpu.annotate_array(data, **kw)
     assert cuda_attn.launches > before and (cuda_attn.launches - before) % 2 == 0
     np.testing.assert_allclose(gc, cpu.annotate_array(data, **kw), atol=1e-4)
+
+
+# ---- trigger_scan (K3)
+@pytest.mark.parametrize("b,w", [(4, 1), (5, 7), (8, 1023), (8, 1025), (9, 5000), (24, 120000)])
+def test_trigger_scan_equals_twin(dev, b, w):
+    rng = np.random.default_rng(w)
+    curves = _curves(rng, b, w)
+    curves[-1] = 0.95  # a row that is all one run
+    prob = torch.as_tensor(curves, device=dev)
+    t1 = torch.as_tensor(rng.uniform(0.3, 0.8, b).astype(np.float32), device=dev)
+    t2 = t1 * 0.5
+    before = cuda_trig.scan_launches
+    got = cuda_trig.trigger_scan(prob, t1, t2)
+    assert cuda_trig.scan_launches == before + 1
+    want = cuda_trig.trigger_scan_reference(prob, t1, t2)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    k = 16
+    full = extract_triggers_batched(prob, t1, t2, max_picks=k, method="pallas_full")
+    for method in ("pallas", "shift"):
+        for g, r in zip(extract_triggers_batched(prob, t1, t2, max_picks=k, method=method), full):
+            assert torch.equal(g, r)
+
+
+def test_trigger_scan_refuses_non_contiguous(dev):
+    prob = torch.rand(50, 6, device=dev).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_trig.trigger_scan(prob, torch.ones(6, device=dev), torch.ones(6, device=dev))
+
+
+# ---- condition_windows (K4)
+@pytest.mark.parametrize("detrend", [False, True])
+@pytest.mark.parametrize("norm", ["peak", "std"])
+@pytest.mark.parametrize("n,c,w", [(232, 3, 6000), (8, 3, 6000), (1, 1, 257), (5, 3, 3001),
+                                   (3, 2, 31)])
+def test_condition_windows_matches_twin(dev, detrend, norm, n, c, w):
+    rng = np.random.default_rng(n + w)
+    t = np.linspace(-1.0, 1.0, w)
+    x = rng.normal(size=(n, c, w)) + rng.uniform(-20, 20, (n, c, 1)) + rng.uniform(-30, 30, (n, c, 1)) * t
+    x = torch.as_tensor(x.astype(np.float32), device=dev)
+    before = cuda_cond.launches
+    got = cuda_cond.condition_windows(x, detrend=detrend, norm=norm)
+    assert cuda_cond.launches == before + 1
+    want = cuda_cond.condition_windows_reference(x, detrend=detrend, norm=norm)
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+def test_condition_windows_refusals(dev):
+    with pytest.raises(ValueError, match="limit"):
+        cuda_cond.condition_windows(torch.zeros(1, 1, cuda_cond.MAX_SAMPLES + 1, device=dev))
+    x = torch.zeros(4, 3, 200, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_cond.condition_windows(x[..., ::2])
+    assert cuda_cond.condition_windows(torch.zeros(1, 1, cuda_cond.MAX_SAMPLES, device=dev)).shape[-1] \
+        == cuda_cond.MAX_SAMPLES
+
+
+# ---- addattn (K5)
+@pytest.mark.parametrize("b,c,t,u,scale", [(232, 16, 47, 32, 1.0), (1, 16, 47, 32, 1.0),
+                                           (3, 16, 1, 32, 1.0), (5, 8, 33, 16, 1.0),
+                                           (7, 16, 64, 32, 1.0), (4, 3, 5, 7, 1.0),
+                                           (9, 16, 47, 32, 20.0)])
+def test_addattn_matches_twin(dev, b, c, t, u, scale):
+    rng = np.random.default_rng(b + t)
+    x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev)
+    q = torch.as_tensor((rng.normal(size=(b, t, u)) * scale).astype(np.float32), device=dev)
+    k = torch.as_tensor((rng.normal(size=(b, t, u)) * scale).astype(np.float32), device=dev)
+    wa = torch.as_tensor(rng.uniform(-0.5, 0.5, u).astype(np.float32), device=dev)
+    before = cuda_addattn.launches
+    got = cuda_addattn.addattn(x, q, k, wa)
+    assert cuda_addattn.launches == before + 1
+    assert (got - cuda_addattn.addattn_reference(x, q, k, wa)).abs().max().item() <= 1e-5
+
+
+def test_addattn_refusals(dev):
+    x = torch.zeros(1, 16, 128, device=dev)
+    q = torch.zeros(1, 128, 32, device=dev)
+    wa = torch.zeros(32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):  # T = 128 does not fit
+        cuda_addattn.addattn(x, q, q, wa)
+    x = torch.zeros(2, 47, 16, device=dev).transpose(1, 2)
+    q = torch.zeros(2, 47, 32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_addattn.addattn(x, q, q, wa)
+
+
+# ---- res_cnn_stack (K6)
+def _res_model(dev, seed):
+    model = load_model("eqtransformer", seed=seed, in_samples=1504, lstm_blocks=1, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in model.res_cnn_stack.members:
+            for norm in (blk.norm1, blk.norm2):
+                norm.running_mean.copy_(torch.randn(64, generator=gen) * 0.3)
+                norm.running_var.copy_(torch.rand(64, generator=gen) * 2 + 0.5)
+                norm.weight.copy_(torch.randn(64, generator=gen) * 0.5 + 1)
+                norm.bias.copy_(torch.randn(64, generator=gen) * 0.1)
+    return model
+
+
+@pytest.mark.parametrize("b,t", [(232, 47), (1, 47), (3, 1), (5, 12), (4, 48), (2, 13)])
+def test_res_cnn_stack_matches_twin_and_modules(dev, b, t):
+    model = _res_model(dev, seed=b)
+    packed = cuda_rescnn.fold_res_cnn_params(model.res_cnn_stack)
+    x = torch.as_tensor(np.random.default_rng(t).normal(size=(b, 64, t)).astype(np.float32), device=dev)
+    before = cuda_rescnn.launches
+    got = cuda_rescnn.res_cnn_stack(x, packed)
+    assert cuda_rescnn.launches == before + 1
+    assert (got - cuda_rescnn.res_cnn_stack_reference(x, packed)).abs().max().item() <= 3e-4
+    with torch.inference_mode():
+        h = x
+        for block in model.res_cnn_stack.members:
+            h = block(h)
+    assert (got - h).abs().max().item() <= 3e-4
+
+
+def test_res_cnn_stack_narrow_channels(dev):
+    rng = np.random.default_rng(0)
+    c, nb = 24, 3
+    packed = {k: torch.as_tensor(rng.normal(size=(nb, 3, c, c) if k in ("w1", "w2") else (nb, c))
+                                 .astype(np.float32) * 0.2, device=dev)
+              for k in ("w1", "w2", "cb1", "cb2", "g1", "b1", "g2", "b2")}
+    x = torch.as_tensor(rng.normal(size=(6, c, 30)).astype(np.float32), device=dev)
+    got = cuda_rescnn.res_cnn_stack(x, packed)
+    assert (got - cuda_rescnn.res_cnn_stack_reference(x, packed)).abs().max().item() <= 3e-4
+
+
+def test_res_cnn_stack_refusals(dev):
+    model = _res_model(dev, seed=0)
+    packed = cuda_rescnn.fold_res_cnn_params(model.res_cnn_stack)
+    with pytest.raises(ValueError, match="limits"):  # T = 49
+        cuda_rescnn.res_cnn_stack(torch.zeros(1, 64, 49, device=dev), packed)
+    x = torch.zeros(2, 47, 64, device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_rescnn.res_cnn_stack(x, packed)
+
+
+# ---- the opt-in route end to end
+def test_optin_picker_gpu_matches_cpu(dev, monkeypatch):
+    rng = np.random.default_rng(7)
+    data = (rng.normal(size=(2, 3, 5000)) * 0.1).astype(np.float32) + 0.5
+    data[:, :, 2500:2600] += 2.0 * np.hanning(100).astype(np.float32)
+    margs = dict(in_samples=1504, lstm_blocks=1, fused="plstm+bandattn+pattn")
+    gpu = WaveformPicker(load_model("eqtransformer", seed=1, device=dev, **margs), device=dev,
+                         use_pallas=True)
+    cpu = WaveformPicker(load_model("eqtransformer", seed=1, **margs), device="cpu", use_pallas=True)
+    kw = dict(overlap=1128, blinding=(200, 200), batch_size=8)
+    before = (cuda_addattn.launches, cuda_cond.launches, cuda_trig.scan_launches, cuda_trig.launches)
+    gc = gpu.annotate_array(data, **kw)
+    np.testing.assert_allclose(gc, cpu.annotate_array(data, **kw), atol=1e-4)
+    assert cuda_addattn.launches > before[0] and cuda_cond.launches > before[1]
+    thr = {lab: float(np.percentile(gc[:, i], 99.0)) for i, lab in enumerate(["Detection", "P", "S"])}
+    monkeypatch.setenv("VOLPICK_TRIGGER_METHOD", "pallas")
+    res = gpu.classify_arrays(data, thr, **kw)
+    assert cuda_trig.scan_launches == before[2] + 1 and cuda_trig.launches == before[3]
+    monkeypatch.setenv("VOLPICK_TRIGGER_METHOD", "pallas_full")
+    full = gpu.classify_arrays(data, thr, **kw)
+    for lab in res:
+        for g, r in zip(res[lab], full[lab]):
+            np.testing.assert_array_equal(g, r)
+    assert sum(int(v[2].sum()) for v in res.values()) > 0

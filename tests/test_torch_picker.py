@@ -171,12 +171,19 @@ def test_cuda_device_without_cuda_raises():
 
 
 def test_port_imports_no_jax():
+    """In a fresh interpreter, importing the port, its picker, every module
+    of the package (the ``ops/cuda`` wrappers among them) loads neither JAX
+    nor anything of the JAX package."""
     code = (
         "import importlib, pkgutil, sys, volpick_tpu_torch\n"
-        "for m in pkgutil.walk_packages(volpick_tpu_torch.__path__, 'volpick_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] == 'jax' or (m.startswith('volpick_tpu.')"
-        " and not m.startswith('volpick_tpu.core'))]\n"
+        "import volpick_tpu_torch.picker\n"
+        "names = [m.name for m in pkgutil.walk_packages(volpick_tpu_torch.__path__, 'volpick_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for want in ('core.stream', 'core.picks', 'ops.cuda.addattn', 'ops.cuda.conditioning',\n"
+        "             'ops.cuda.rescnn', 'ops.cuda.triggers', 'ops.cuda.lstm', 'ops.cuda.attention'):\n"
+        "    assert 'volpick_tpu_torch.' + want in sys.modules, want\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'volpick_tpu')]\n"
         "print('BAD', sorted(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -31,84 +31,11 @@
 // the cost stays three passes over the row. Rows run on separate CTAs; a
 // chunk-parallel split of each row over several CTAs is left to later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "trigger_monoid.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kNone = 2147483647;  // INT32_MAX: no > t1 sample seen in the run
-
-struct State {
-  int flag;  // this stretch opens a new > t2 run (segment reset)
-  int on;    // first > t1 index in the current run, or kNone
-  float m;   // running max of the run (-inf outside runs)
-  int am;    // index of the first occurrence of that max
-};
-
-__device__ __forceinline__ State identity() {
-  State s;
-  s.flag = 0;
-  s.on = kNone;
-  s.m = -INFINITY;
-  s.am = 0;
-  return s;
-}
-
-// volpick_tpu/ops/triggers.py::_combine; `a` covers the earlier samples.
-__device__ __forceinline__ State combine(const State& a, const State& c) {
-  const bool use_c = c.m > a.m;  // strict: the first occurrence of the max wins
-  State r;
-  r.flag = a.flag | c.flag;
-  r.on = c.flag ? c.on : min(a.on, c.on);
-  r.m = c.flag ? c.m : (use_c ? c.m : a.m);
-  r.am = c.flag ? c.am : (use_c ? c.am : a.am);
-  return r;
-}
-
-// Folds x[lo, hi) into `st` sample by sample and calls emit(i, st) at every
-// run end whose run has crossed t1, with st the state after sample i.
-template <typename Emit>
-__device__ __forceinline__ State fold(const float* __restrict__ x, int lo, int hi, int w,
-                                      float t1, float t2, State st, Emit emit) {
-  bool prev2 = lo > 0 && x[lo - 1] > t2;
-  bool a2 = lo < hi && x[lo] > t2;
-  for (int i = lo; i < hi; ++i) {
-    const float v = x[i];
-    State e;
-    e.flag = a2 && !prev2;
-    e.on = (a2 && v > t1) ? i : kNone;
-    e.m = a2 ? v : -INFINITY;
-    e.am = i;
-    st = combine(st, e);
-    const bool next2 = i + 1 < w && x[i + 1] > t2;
-    if (a2 && !next2 && st.on != kNone) {
-      if (!emit(i, st)) break;
-    }
-    prev2 = a2;
-    a2 = next2;
-  }
-  return st;
-}
-
-// Block-wide inclusive scan; on return sh[t] holds thread t's inclusive state.
-__device__ State scan_states(State s, State* sh) {
-  const int tid = threadIdx.x;
-  sh[tid] = s;
-  __syncthreads();
-  for (int d = 1; d < blockDim.x; d <<= 1) {
-    State left = identity();
-    if (tid >= d) left = sh[tid - d];
-    __syncthreads();
-    if (tid >= d) {
-      s = combine(left, s);
-      sh[tid] = s;
-    }
-    __syncthreads();
-  }
-  return s;
-}
+constexpr float kOutside = -INFINITY;  // max of a stretch outside any run
 
 // Block-wide inclusive sum; on return sh[t] holds thread t's inclusive sum.
 __device__ int scan_counts(int v, int* sh) {
@@ -147,14 +74,15 @@ trigger_extract_kernel(const float* __restrict__ prob, const float* __restrict__
   const int hi = min(lo + seg, w);
 
   // 1 + 2: segment summaries, then the state carried into each segment
-  const State summary = fold(x, lo, hi, w, t1, t2, identity(),
+  const auto skip = [](int, const State&) {};
+  const State summary = fold(x, lo, hi, w, t1, t2, kOutside, identity(kOutside), skip,
                              [](int, const State&) { return true; });
-  scan_states(summary, sh_state);
-  const State carry = tid > 0 ? sh_state[tid - 1] : identity();
+  scan_states(summary, sh_state, kOutside);
+  const State carry = tid > 0 ? sh_state[tid - 1] : identity(kOutside);
 
   // 3: emissions per segment -> first slot of each segment
   int count = 0;
-  fold(x, lo, hi, w, t1, t2, carry, [&](int, const State&) {
+  fold(x, lo, hi, w, t1, t2, kOutside, carry, skip, [&](int, const State&) {
     ++count;
     return true;
   });
@@ -165,7 +93,7 @@ trigger_extract_kernel(const float* __restrict__ prob, const float* __restrict__
   // 4: write the picks that fit
   const size_t out0 = static_cast<size_t>(row) * k;
   if (count > 0 && slot < k) {
-    fold(x, lo, hi, w, t1, t2, carry, [&](int i, const State& st) {
+    fold(x, lo, hi, w, t1, t2, kOutside, carry, skip, [&](int i, const State& st) {
       peak_idx[out0 + slot] = st.am;
       peak_val[out0 + slot] = st.m;
       onset[out0 + slot] = st.on;

@@ -6,6 +6,8 @@ BiLSTM blocks → 2 transformer blocks with dense additive attention → a
 detection decoder plus P/S pick branches (both pick LSTMs in one merged
 recurrence, width-3 banded attention), each with its own decoder and sigmoid
 head. Every LSTM recurrence goes through ``ops/cuda/lstm.py::lstm_multi``.
+With the ``fused`` token ``"pattn"`` the transformer blocks' attention goes
+through ``ops/cuda/addattn.py::seq_self_attention`` (see ``resolve_fused``).
 
 Submodules and parameters carry the SeisBench state-dict names (the key map
 of ``volpick_tpu/models/torch_import.py::import_eqtransformer``), so a
@@ -14,7 +16,8 @@ published ``volpick.pt.v1`` loads with ``load_state_dict(strict=True)``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import os
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -33,11 +36,48 @@ from volpick_tpu_torch.models.layers import (
 )
 from volpick_tpu_torch.models.params import Conv, bn, uniform
 from volpick_tpu_torch.models.params import bn_params as _bn_params
+from volpick_tpu_torch.ops.cuda.addattn import seq_self_attention as seq_self_attention_kernel
 from volpick_tpu_torch.ops.cuda.lstm import lstm_multi
 
 _BN_EPS = 1e-3
 _LN_EPS = 1e-14
 _ATTN_EPS = 1e-5
+
+DEFAULT_FUSED = "plstm+bandattn"
+# tokens of the JAX ``fused`` flag: the port always runs "plstm" and
+# "bandattn", adds "pattn" on request and has not ported the others
+_FUSED_PORTED = {"plstm", "bandattn", "pattn"}
+_FUSED_NOT_PORTED = {"lstm", "grouped", "blockdiag", "polyup"}
+
+
+def parse_fused(fused: Union[str, bool]) -> str:
+    """Canonical ``fused`` route, ``"plstm+bandattn"`` or
+    ``"plstm+bandattn+pattn"``, from a flag of the JAX package's grammar: True
+    or "1" is the default route; a "+"-joined token set must hold "plstm" and
+    "bandattn" and may hold "pattn". The tokens the port has not ported, and
+    False (the per-branch program), raise NotImplementedError; an unknown token
+    raises ValueError."""
+    flag = fused.strip().lower() if isinstance(fused, str) else fused
+    if flag is True or flag in ("1", "true", "on", "yes"):
+        return DEFAULT_FUSED
+    if flag is False or flag in ("0", "false", "off", "no"):
+        raise NotImplementedError(
+            "fused=False (the per-branch EQTransformer program) is not ported; "
+            f"use {DEFAULT_FUSED!r} or {DEFAULT_FUSED + '+pattn'!r}"
+        )
+    parts = set(str(flag).split("+"))
+    unknown = parts - _FUSED_PORTED - _FUSED_NOT_PORTED
+    if unknown:
+        raise ValueError(f"unknown fused flags: {sorted(unknown)}")
+    missing = parts & _FUSED_NOT_PORTED
+    if missing:
+        raise NotImplementedError(f"fused flags {sorted(missing)} are not ported")
+    if not {"plstm", "bandattn"} <= parts:
+        raise NotImplementedError(
+            f"fused={fused!r}: the port runs the merged LSTM kernel and the banded pick "
+            "attention always; a route without 'plstm' and 'bandattn' is not ported"
+        )
+    return DEFAULT_FUSED + ("+pattn" if "pattn" in parts else "")
 
 
 def _encoder_pool_paddings(in_samples: int, n_layers: int) -> List[int]:
@@ -144,8 +184,9 @@ class Transformer(nn.Module):
         self.ff = FeedForward(c, gen)
         self.norm2 = LayerNormalization(c)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        y = seq_self_attention(h, self.attention.params(), eps=_ATTN_EPS)
+    def forward(self, h: torch.Tensor, p_attn: bool = False) -> torch.Tensor:
+        attend = seq_self_attention_kernel if p_attn else seq_self_attention
+        y = attend(h, self.attention.params(), eps=_ATTN_EPS)
         y = self.norm1(h + y)
         return self.norm2(y + self.ff(y))
 
@@ -195,7 +236,8 @@ class EQTransformer(nn.Module):
     """x (B, 3, in_samples) → (detection, P, S), each (B, in_samples), in [0, 1].
 
     One detection decoder + head is built per entry of ``detection_branches``
-    (VolEQTransformer adds a second).
+    (VolEQTransformer adds a second). ``fused`` picks the forward's route
+    (``resolve_fused``); ``forward(x, fused=...)`` overrides it for one call.
 
     Parameters are drawn from ``generator`` (a fresh ``torch.Generator``
     seeded 0 when omitted) with the distributions of the JAX
@@ -218,6 +260,7 @@ class EQTransformer(nn.Module):
         filters: Tuple[int, ...] = (8, 16, 16, 32, 32, 64, 64),
         kernel_sizes: Tuple[int, ...] = (11, 9, 7, 7, 5, 5, 3),
         res_cnn_kernels: Tuple[int, ...] = (3, 3, 3, 3, 2, 3, 2),
+        fused: Union[str, bool, None] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -234,6 +277,7 @@ class EQTransformer(nn.Module):
         self.drop_rate = drop_rate  # training only; the eval forward has no dropout
         self.component_order = component_order
         self.default_args = dict(default_args or {})
+        self.fused = fused
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
 
         f, ks = list(self.filters), list(self.kernel_sizes)
@@ -274,15 +318,32 @@ class EQTransformer(nn.Module):
             z = F.relu(conv.same(z))
         return torch.sigmoid(head.same(z)[:, 0])
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder alone: x (B, 3, in_samples) → (B, filters[-1], T)."""
         h = x
         for conv, pad in zip(self.encoder.convs, self._pool_pads):
             h = max_pool1d(F.relu(conv.same(h)), 2, padding=pad)
+        return h
+
+    def resolve_fused(self) -> str:
+        """The forward's route: the ``fused`` field, else
+        ``$VOLPICK_EQT_FUSED``, else ``"plstm+bandattn"``; see ``parse_fused``."""
+        if self.fused is not None:
+            return parse_fused(self.fused)
+        env = os.environ.get("VOLPICK_EQT_FUSED", "").strip()
+        return parse_fused(env) if env else DEFAULT_FUSED
+
+    def forward(
+        self, x: torch.Tensor, fused: Union[str, bool, None] = None
+    ) -> Tuple[torch.Tensor, ...]:
+        route = parse_fused(fused) if fused is not None else self.resolve_fused()
+        p_attn = route.endswith("+pattn")
+        h = self.encode(x)
         for block in self.res_cnn_stack.members:
             h = block(h)
         for block in self.bi_lstm_stack.members:
             h = block(h)
-        h = self.transformer_d(self.transformer_d0(h))
+        h = self.transformer_d(self.transformer_d0(h, p_attn), p_attn)
 
         # both pick LSTMs read the trunk output: one merged recurrence
         branch_ins = [h for _ in self.detection_branches]

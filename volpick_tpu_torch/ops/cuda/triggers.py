@@ -1,13 +1,21 @@
-"""Trigger extraction: the CUDA kernel ``csrc/trigger_extract.cu`` and its
-plain PyTorch twin.
+"""Trigger extraction and trigger scan: the CUDA kernels
+``csrc/trigger_extract.cu`` and ``csrc/trigger_scan.cu`` and their plain
+PyTorch twins.
 
-Port of ``volpick_tpu/ops/pallas/triggers.py::trigger_extract_pallas`` (the
-kernel) and of the ``"blocked"``-style scan path of
-``volpick_tpu/ops/triggers.py::extract_triggers_batched`` (the twin). Both
-return ``(peak_idx, peak_val, valid, onset, offset)``, each (B, K), and must
-agree exactly.
+``trigger_extract`` ports
+``volpick_tpu/ops/pallas/triggers.py::trigger_extract_pallas`` (scan and pick
+emission in one kernel); its twin is the ``"shift"`` scan path of
+``volpick_tpu/ops/triggers.py::extract_triggers_batched``. Both return
+``(peak_idx, peak_val, valid, onset, offset)``, each (B, K), and must agree
+exactly.
 
-``trigger_extract`` takes the twin for a CPU tensor and the kernel for a CUDA
+``trigger_scan`` ports ``trigger_scan_pallas_raw`` of the same module: the
+scanned state ``(onset, max, argmax)`` at every position, each (B, W), with
+no emission; ``emit_picks`` is the plain PyTorch emission that follows it
+(``volpick_tpu/ops/triggers.py:328-351``). Kernel and twin agree exactly at
+every position.
+
+Each wrapper takes the twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no other route.
 """
 
@@ -21,10 +29,15 @@ import torch
 from volpick_tpu_torch.ops.cuda import _build
 
 _I32_MAX = 2**31 - 1
+# what trigger_scan reports as the max of a stretch outside any run: the
+# finite stand-in for -inf of volpick_tpu/ops/pallas/triggers.py
+SCAN_NEG = -3.4e38
 
 launches = 0  # kernel launches made by trigger_extract on CUDA tensors
+scan_launches = 0  # kernel launches made by trigger_scan on CUDA tensors
 
 Picks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+Scan = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _combine(a, c):
@@ -44,9 +57,9 @@ def _combine(a, c):
     )
 
 
-def _shift_right(state, d: int):
+def _shift_right(state, d: int, neg: float):
     """Shift each (B, W) state array right by d, filling with the identity."""
-    fills = (False, _I32_MAX, float("-inf"), 0)
+    fills = (False, _I32_MAX, neg, 0)
     out = []
     for arr, fill in zip(state, fills):
         shifted = torch.full_like(arr, fill)
@@ -55,46 +68,57 @@ def _shift_right(state, d: int):
     return tuple(out)
 
 
-def _scan(state):
-    """Hillis-Steele inclusive scan along the row: log2(W) shift+combine passes."""
+def _scan(state, neg: float):
+    """Hillis-Steele inclusive scan along the row: log2(W) shift+combine
+    passes. Position 0 takes the identity on its left in the first pass, so a
+    stretch before the first run ends with argmax 0, as a fold from the
+    identity does."""
     w = state[0].shape[1]
     d = 1
     while d < w:
-        state = _combine(_shift_right(state, d), state)
+        state = _combine(_shift_right(state, d, neg), state)
         d *= 2
     return state
 
 
-def trigger_extract_reference(
-    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int
-) -> Picks:
-    """Plain PyTorch twin of the kernel, on any device.
+def _run_ends(prob: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+    """(B, W) bool: the last sample of every > t2 run (a run touching the
+    row end ends at W - 1)."""
+    above2 = prob > t2[:, None]
+    next2 = torch.zeros_like(above2)
+    next2[:, :-1] = above2[:, 1:]
+    return above2 & ~next2
 
-    prob (B, W) float32, t1/t2 (B,) float32 per-row thresholds. A segmented
-    scan gives each sample its run's onset, max and argmax; picks are read at
-    the run ends that crossed t1, and the earliest ``max_picks`` per row are
-    kept in time order."""
+
+def _scan_states(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, neg: float) -> Scan:
+    """Segmented scan in plain PyTorch: (onset, max, argmax) at every position."""
     b, w = prob.shape
     above2 = prob > t2[:, None]
     above1 = prob > t1[:, None]
     prev2 = torch.zeros_like(above2)
     prev2[:, 1:] = above2[:, :-1]
-    next2 = torch.zeros_like(above2)
-    next2[:, :-1] = above2[:, 1:]
-    run_start = above2 & ~prev2
-    run_end = above2 & ~next2
     pos = torch.arange(w, dtype=torch.int32, device=prob.device).expand(b, w)
-    none = torch.full_like(pos, _I32_MAX)
     state = (
-        run_start,
-        torch.where(above1 & above2, pos, none),
-        torch.where(above2, prob, torch.full_like(prob, float("-inf"))),
+        above2 & ~prev2,  # run start
+        torch.where(above1 & above2, pos, torch.full_like(pos, _I32_MAX)),
+        torch.where(above2, prob, torch.full_like(prob, neg)),
         pos,
     )
-    _, onset, run_max, run_argmax = _scan(state)
-    emit = run_end & (onset < _I32_MAX)
+    _, onset, run_max, run_argmax = _scan(state, neg)
+    return onset, run_max, run_argmax
 
-    # earliest max_picks emissions per row: the k smallest emitting positions
+
+def emit_picks(
+    prob: torch.Tensor, t2: torch.Tensor, scan: Scan, max_picks: int
+) -> Picks:
+    """Picks from a scanned state, in plain PyTorch on any device: read at the
+    run ends whose run crossed t1, the earliest ``max_picks`` per row in time
+    order; unused slots hold idx/onset/offset -1 and value 0."""
+    onset, run_max, run_argmax = scan
+    b, w = prob.shape
+    pos = torch.arange(w, dtype=torch.int32, device=prob.device).expand(b, w)
+    emit = _run_ends(prob, t2) & (onset < _I32_MAX)
+    # the k smallest emitting positions; non-emitting positions rank last
     order = torch.where(emit, pos, torch.full_like(pos, w))
     if max_picks > w:
         order = torch.cat([order, order.new_full((b, max_picks - w), w)], dim=1)
@@ -108,6 +132,24 @@ def trigger_extract_reference(
     on_idx = torch.where(valid, take(onset), neg1)
     off_idx = torch.where(valid, top, neg1)  # the emission position is the run end
     return peak_idx, peak_val, valid, on_idx, off_idx
+
+
+def trigger_extract_reference(
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int
+) -> Picks:
+    """Plain PyTorch twin of the kernel, on any device.
+
+    prob (B, W) float32, t1/t2 (B,) float32 per-row thresholds. A segmented
+    scan gives each sample its run's onset, max and argmax; picks are read at
+    the run ends that crossed t1, and the earliest ``max_picks`` per row are
+    kept in time order."""
+    return emit_picks(prob, t2, _scan_states(prob, t1, t2, float("-inf")), max_picks)
+
+
+def trigger_scan_reference(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor) -> Scan:
+    """Plain PyTorch twin of ``trigger_scan``, on any device; see there for
+    what the outputs hold."""
+    return _scan_states(prob, t1, t2, SCAN_NEG)
 
 
 def _check(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int) -> None:
@@ -165,3 +207,45 @@ def trigger_extract(
         raise RuntimeError(f"trigger_extract_f32 launch failed: cudaError {err}")
     launches += 1
     return peak_idx, peak_val, valid, onset, offset
+
+
+def trigger_scan(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor) -> Scan:
+    """Segmented trigger scan of (B, W) float32 curves with per-row thresholds
+    t1/t2 (B,): ``(onset int32, max float32, argmax int32)``, each (B, W).
+
+    At a position inside a > t2 run: the first > t1 index of the run so far
+    (INT32_MAX while it has not crossed t1), the run's max so far and the
+    index of its first occurrence. At a position outside any run the three
+    keep the state of the last run before it; before the first run of the
+    row they hold (INT32_MAX, -3.4e38, 0). Picks are read at run ends, where
+    the state covers the whole run (``emit_picks``).
+
+    A CPU tensor goes to ``trigger_scan_reference``; a CUDA tensor launches
+    the kernel (one CTA per row) or raises."""
+    global scan_launches
+    _check(prob, t1, t2, 1)
+    if prob.device.type == "cpu":
+        return trigger_scan_reference(prob, t1, t2)
+    if prob.device.type != "cuda":
+        raise ValueError(f"trigger_scan runs on cpu or cuda, got {prob.device}")
+    for name, t in (("prob", prob), ("t1", t1), ("t2", t2)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, w = prob.shape
+    onset = torch.empty((b, w), dtype=torch.int32, device=prob.device)
+    run_max = torch.empty((b, w), dtype=torch.float32, device=prob.device)
+    run_argmax = torch.empty((b, w), dtype=torch.int32, device=prob.device)
+    if b == 0:
+        return onset, run_max, run_argmax
+    fn = _build.function(
+        "trigger_scan_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    )
+    err = fn(
+        prob.data_ptr(), t1.data_ptr(), t2.data_ptr(), b, w,
+        onset.data_ptr(), run_max.data_ptr(), run_argmax.data_ptr(),
+        torch.cuda.current_stream(prob.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"trigger_scan_f32 launch failed: cudaError {err}")
+    scan_launches += 1
+    return onset, run_max, run_argmax

@@ -3,19 +3,49 @@
 Port of ``volpick_tpu/ops/triggers.py::extract_triggers_batched``: obspy
 ``trigger_onset(prob, thres1, thres2)`` semantics with an in-trigger argmax,
 for many curves at once with per-row thresholds. The work is done by
-``ops/cuda/triggers.py``: its CUDA kernel for a CUDA tensor, its plain
-PyTorch twin for a CPU tensor.
+``ops/cuda/triggers.py``: its CUDA kernels for a CUDA tensor, their plain
+PyTorch twins for a CPU tensor.
+
+Methods (the names of the JAX package, so ``$VOLPICK_TRIGGER_METHOD`` means
+the same in both):
+
+- ``"pallas_full"`` (default): scan and pick emission in one kernel,
+  ``trigger_extract``;
+- ``"pallas"``: the ``trigger_scan`` kernel writes the scanned state at every
+  position, and the emission (run-end mask, earliest-k, gathers) follows in
+  plain PyTorch;
+- ``"shift"``: the scan itself in plain PyTorch (shift + combine passes)
+  followed by the same emission, on any device.
+
+All give the same picks. ``"assoc"`` and ``"blocked"``, the JAX package's
+other plain lowerings of the same scan, are not ported.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import torch
 
-from volpick_tpu_torch.ops.cuda.triggers import Picks, trigger_extract
+from volpick_tpu_torch.ops.cuda.triggers import (
+    Picks,
+    emit_picks,
+    trigger_extract,
+    trigger_extract_reference,
+    trigger_scan,
+)
+
+_NOT_PORTED = ("assoc", "blocked")
+
+
+def default_trigger_method() -> str:
+    """``$VOLPICK_TRIGGER_METHOD``, else ``"pallas_full"``."""
+    return os.environ.get("VOLPICK_TRIGGER_METHOD", "").strip() or "pallas_full"
 
 
 def extract_triggers_batched(
-    prob: torch.Tensor, thres1, thres2=None, max_picks: int = 32
+    prob: torch.Tensor, thres1, thres2=None, max_picks: int = 32, method: Optional[str] = None
 ) -> Picks:
     """Returns (peak_idx, peak_value, valid, onset_idx, offset_idx), each
     (B, max_picks), for prob (B, W) float32.
@@ -23,7 +53,17 @@ def extract_triggers_batched(
     thres1/thres2 are scalars or per-row (B,) values; thres2 defaults to
     thres1 / 2 computed in float32. Picks are the earliest max_picks per row
     in time order; invalid entries have idx/onset/offset -1 and value 0.
-    offset is the last index of the > thres2 run (inclusive, obspy)."""
+    offset is the last index of the > thres2 run (inclusive, obspy).
+    `method` selects the route (see the module docstring); None takes
+    ``default_trigger_method()``."""
+    if method is None:
+        method = default_trigger_method()
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"trigger method {method!r} is not ported; use pallas_full, pallas or shift"
+        )
+    if method not in ("pallas_full", "pallas", "shift"):
+        raise ValueError(f"unknown trigger scan method {method!r}")
     b = prob.shape[0]
     t1 = torch.as_tensor(thres1, dtype=torch.float32, device=prob.device)
     t2 = t1 / 2.0 if thres2 is None else torch.as_tensor(
@@ -31,4 +71,9 @@ def extract_triggers_batched(
     )
     t1 = t1.reshape(-1).expand(b).contiguous()
     t2 = t2.reshape(-1).expand(b).contiguous()
-    return trigger_extract(prob.contiguous(), t1, t2, max_picks)
+    prob = prob.contiguous()
+    if method == "pallas_full":
+        return trigger_extract(prob, t1, t2, max_picks)
+    if method == "pallas":
+        return emit_picks(prob, t2, trigger_scan(prob, t1, t2), max_picks)
+    return trigger_extract_reference(prob, t1, t2, max_picks)

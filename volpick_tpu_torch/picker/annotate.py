@@ -18,8 +18,11 @@ Per station batch (S, C, W_total) on the device:
 5. extract two-threshold triggers on every non-noise channel in one call.
 Only the fixed-size pick buffers come back to the host.
 
-Stream grouping and the result types are the JAX-free host layer shared with
-``volpick_tpu.core``. Everything runs in float32; on CUDA, TF32 is switched
+Stream grouping and the result types are the port's own host layer,
+``volpick_tpu_torch.core``; the picker reads a stream's attributes only, so
+any stream object with the same surface is accepted. With
+``use_pallas=True`` step 2 runs the conditioning kernel of
+``ops/cuda/conditioning.py`` on framed windows. Everything runs in float32; on CUDA, TF32 is switched
 off for cuDNN convolutions and matmuls while the picker works (and restored
 after), so results stay comparable with the CPU and the JAX reference.
 """
@@ -32,8 +35,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from volpick_tpu.core.picks import ClassifyOutput, Detection, Pick, PickList
-from volpick_tpu.core.stream import Stream, Trace, UTC, group_streams_by_instrument
+from volpick_tpu_torch.core.picks import ClassifyOutput, Detection, Pick, PickList
+from volpick_tpu_torch.core.stream import Stream, Trace, UTC, group_streams_by_instrument
+from volpick_tpu_torch.ops.cuda.conditioning import condition_windows
 from volpick_tpu_torch.ops.signal import (
     condition_windows_from_span,
     demean,
@@ -58,9 +62,13 @@ class WaveformPicker:
 
     ``device`` is "cpu" or a CUDA device; asking for CUDA where none is
     available raises instead of running on the CPU. The model is moved to
-    the device and put in eval mode."""
+    the device and put in eval mode. ``use_pallas=True`` (the JAX picker's
+    name for the switch) conditions framed windows with the kernel of
+    ``ops/cuda/conditioning.py`` instead of conditioning each step's span."""
 
-    def __init__(self, model, device="cpu", detrend: Optional[bool] = None):
+    def __init__(
+        self, model, device="cpu", detrend: Optional[bool] = None, use_pallas: bool = False
+    ):
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -73,10 +81,14 @@ class WaveformPicker:
         # `volpick/model/models.py:263,664`). The rule is the JAX picker's,
         # name for name: VolEQTransformer windows are demeaned.
         self.detrend = detrend if detrend is not None else model.name == "EQTransformer"
-        # freeze an env-selected model route (TPUPickNet's attn) now, so a
-        # later change of the environment does not switch it mid-run
+        self.use_pallas = use_pallas
+        # freeze an env-selected model route (TPUPickNet's attn, the EQT
+        # family's fused) now, so a later change of the environment does not
+        # switch it mid-run
         if hasattr(model, "resolve_attn"):
             model.attn = model.resolve_attn()
+        if hasattr(model, "resolve_fused"):
+            model.fused = model.resolve_fused()
 
     @property
     def in_samples(self) -> int:
@@ -119,6 +131,12 @@ class WaveformPicker:
         return out.float()
 
     def _condition(self, frames: torch.Tensor) -> torch.Tensor:
+        """Condition (..., C, window) windows per channel."""
+        if self.use_pallas:
+            flat = frames.reshape((-1,) + frames.shape[-2:]).contiguous()
+            return condition_windows(
+                flat, detrend=self.detrend, norm=self.model.norm
+            ).reshape(frames.shape)
         frames = detrend_linear(frames) if self.detrend else demean(frames)
         return normalize_amplitude(frames, norm=self.model.norm, per_channel=True)
 
@@ -173,8 +191,9 @@ class WaveformPicker:
         local_len = (wpc + m - 1) * stride
         acc_len = max((n_steps * wpc + m - 1) * stride, total)
         # per-window mean/slope from stride-block sums of the raw span, when
-        # the stride divides the window (EQT 6000/500)
-        span_cond = window % stride == 0
+        # the stride divides the window (EQT 6000/500); not under use_pallas,
+        # which conditions the framed windows in the kernel
+        span_cond = window % stride == 0 and not self.use_pallas
 
         acc = torch.zeros((s, k_ch, acc_len), dtype=torch.float32, device=data.device)
         for i in range(n_steps):

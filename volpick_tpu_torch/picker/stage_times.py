@@ -1,6 +1,6 @@
 """Where the time of one classify goes, on one CUDA device.
 
-    python -m volpick_tpu_torch.picker.stage_times [--repeats 10] [--out chiprun_out/stage_times.txt]
+    python -m volpick_tpu_torch.picker.stage_times [--optin] [--repeats 10] [--out FILE]
 
 Runs the bench workload (8 stations x 20 min x 3 components at 100 Hz,
 window 6000, overlap 5500, blinding (500, 500), avg stacking, batch 256)
@@ -15,6 +15,11 @@ EQTransformer at the published width, float32, and prints:
 - one classify_arrays under ``torch.profiler``: the summed device time, the
   idle share against the unprofiled median, and the top kernels (the full
   table goes to `--out`).
+
+``--optin`` takes EQTransformer's opt-in kernel route instead of the default
+one: ``fused="plstm+bandattn+pattn"`` (additive-attention kernel),
+``WaveformPicker(use_pallas=True)`` (framing + conditioning kernel) and
+``VOLPICK_TRIGGER_METHOD=pallas`` (scan kernel + emission in PyTorch).
 """
 
 from __future__ import annotations
@@ -26,13 +31,11 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from volpick_tpu_torch.models import load_model
-from volpick_tpu_torch.models.layers import max_pool1d
 from volpick_tpu_torch.ops.signal import condition_windows_from_span
 from volpick_tpu_torch.ops.triggers import extract_triggers_batched
-from volpick_tpu_torch.ops.windows import overlap_stack_uniform
+from volpick_tpu_torch.ops.windows import frame_windows_uniform, overlap_stack_uniform
 from volpick_tpu_torch.picker.annotate import WaveformPicker
 
 STATIONS, MINUTES, SR = 8, 20, 100.0
@@ -104,6 +107,7 @@ def profiled(fn):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--optin", action="store_true", help="EQTransformer's opt-in kernel route")
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--out", default="chiprun_out/stage_times.txt")
     args = ap.parse_args()
@@ -113,8 +117,14 @@ def main() -> None:
     card = smi("name,power.limit")
     print(f"card: {card}")
 
-    model = load_model("eqtransformer", seed=0, device=dev)
-    picker = WaveformPicker(model, device=dev)
+    if args.optin:
+        os.environ["VOLPICK_TRIGGER_METHOD"] = "pallas"
+    model = load_model("eqtransformer", seed=0, device=dev,
+                       fused="plstm+bandattn+pattn" if args.optin else None)
+    picker = WaveformPicker(model, device=dev, use_pallas=args.optin)
+    p_attn = model.fused.endswith("+pattn")
+    print(f"route: fused={model.fused!r}, use_pallas={picker.use_pallas}, trigger method "
+          f"{os.environ.get('VOLPICK_TRIGGER_METHOD', 'pallas_full')!r}")
     data = bench_stream_array()
     kw = dict(overlap=OVERLAP, blinding=BLINDING, batch_size=BATCH)
     curves = picker.annotate_array(data, **kw)
@@ -145,13 +155,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     with torch.inference_mode():
         sp = torch.as_tensor(data[..., :span], device=dev)
-        fr = condition_windows_from_span(sp, wpc, stride, WINDOW, detrend=True, norm="peak")
-        x = fr.reshape(wpc * STATIONS, 3, WINDOW)
-
-        def encoder(h):
-            for conv, pad in zip(model.encoder.convs, model._pool_pads):
-                h = max_pool1d(F.relu(conv.same(h)), 2, padding=pad)
-            return h
+        if args.optin:  # frame, then the conditioning kernel
+            condition = lambda: picker._condition(frame_windows_uniform(sp, wpc, stride, WINDOW))
+        else:
+            condition = lambda: condition_windows_from_span(
+                sp, wpc, stride, WINDOW, detrend=True, norm="peak")
+        x = condition().reshape(wpc * STATIONS, 3, WINDOW)
 
         def members(blocks):
             def run(h):
@@ -161,13 +170,12 @@ def main() -> None:
             return run
 
         stages = [
-            ("encoder", encoder),
+            ("encoder", model.encode),
             ("res_cnn", members(model.res_cnn_stack.members)),
             ("bilstm", members(model.bi_lstm_stack.members)),
-            ("transformer", lambda h: model.transformer_d(model.transformer_d0(h))),
+            ("transformer", lambda h: model.transformer_d(model.transformer_d0(h, p_attn), p_attn)),
         ]
-        cond_ms = cuda_ms(lambda: condition_windows_from_span(
-            sp, wpc, stride, WINDOW, detrend=True, norm="peak"))
+        cond_ms = cuda_ms(condition)
         fwd_ms = cuda_ms(lambda: model(x))
         split, h = {}, x
         for name, fn in stages:
