@@ -8,21 +8,29 @@
    (one nvcc per source, in parallel);
 3. holds each kernel against its plain PyTorch twin on the card, at the
    shapes of the main paths, and times kernel and twin with CUDA events:
-   K1 trigger_extract at (24, 120000), K = 80, exactly equal; K2 lstm_multi
-   at G=2, B=232, C in {64, 16}, H=16, T=47 within 1e-5; K3 trigger_scan at
+   K1 trigger_extract at (24, 120000), K = 80, exactly equal; K2 at B=232,
+   C in {64, 16}, H=16, T=47 within 1e-5 in both forms: lstm_multi (G=2
+   inputs, (G, B, H, T) out) and lstm_branches (one x, the second branch
+   scanning time backward, (B, G*H, T) out, the form the models call), the
+   latter also against the stacked and flipped lstm_multi it replaces, with
+   the whole call's time by CUDA events and, from torch.profiler, its summed
+   kernel time and the recurrence kernel's alone; K3 trigger_scan at
    (24, 120000), exactly equal in all three outputs; K4 condition_windows at
    (232, 3, 6000) over detrend x norm within 2e-5; K5 addattn at x
    (232, 16, 47), q / k (232, 47, 32) within 1e-5, at the model's scale and
-   at one that saturates tanh; K7 mha at (128, 128, 94), 4 heads
-   (TPUPickNet's batch-128 step) within 1e-5; K6 res_cnn_stack at
-   (232, 64, 47) within 3e-4 of its twin and of the model's res-CNN section,
-   fed the encoder's output for the bench stream's steps (phase 4b). Beside
-   each kernel it prints the least time the card could take for the same
-   work (bytes over 3.35 TB/s, float32 operations over 67 TFLOP/s,
-   transcendentals over the special-function units' 67 / 16 T/s; the largest
-   of the three) and, for K2 and K7, the time of the one PyTorch call that
-   computes the same function (torch.nn.LSTM(bidirectional=True),
-   F.scaled_dot_product_attention): yardsticks only, the port calls neither;
+   at one that saturates tanh; K7 at (128, 128, 94), 4 heads (TPUPickNet's
+   batch-128 step) within 1e-5 in both entries: mha (head-major) and mha_qkv
+   (in place on the (128, 94, 3, 4, 32) projection, the entry the model
+   calls), the latter also against the former on the same data; K6
+   res_cnn_stack at (232, 64, 47) within 3e-4 of its twin and of the model's
+   res-CNN section, fed the encoder's output for the bench stream's steps
+   (phase 4b). Beside each kernel it prints the least time the card could
+   take for the same work (bytes over 3.35 TB/s, float32 operations over 67
+   TFLOP/s, transcendentals over the special-function units' 67 / 16 T/s; the
+   largest of the three) and, for K2 and K7, the time of the one PyTorch call
+   that computes the same function (torch.nn.LSTM(bidirectional=True);
+   F.scaled_dot_product_attention on views of the same projection):
+   yardsticks only, the port calls neither;
 4. drives every ported picker at full width with seeded random weights on
    the bench stream (8 stations x 20 min at 100 Hz) through
    WaveformPicker.classify, with the launch counts set to 0 just before and
@@ -49,8 +57,10 @@
    forward, as in the JAX package;
 5. times classify_arrays on each (median of 5, windows/s; the window count
    includes the flush window) and sums its kernel time in one call under
-   torch.profiler, and times TPUPickNet's two attention routes once more on
-   one model in turns (xla, pallas, pallas, xla; median of 10 each);
+   torch.profiler (with the call's aten::copy_ and aten::mul launches, which
+   set TPUPickNet's "pallas" route beside its "xla" route), and times
+   TPUPickNet's two attention routes once more on one model in turns (xla,
+   pallas, pallas, xla; median of 10 each);
 6. cross-checks 1 station x 5 min of each against the same weights on the
    CPU (curves within 1e-4); on EQTransformer also the CPU twin of K1 on the
    GPU curves gives exactly the kernel's picks.
@@ -271,6 +281,7 @@ def main() -> None:
           f"({cond_bound[1]}), no library call computes it")
 
     lstm_err, lstm_ms, lstm_bound, lstm_lib_ms = 0.0, {}, {}, {}
+    rev = (False, True)
     for c in (64, 16):  # one forward: BiLSTM 1 at C=64; BiLSTM 2-3 and the pick LSTMs at C=16
         xs = torch.as_tensor(rng.normal(size=(LSTM_G, LSTM_B, c, LSTM_T)).astype(np.float32), device=dev)
         w_ih = torch.as_tensor((rng.uniform(-0.25, 0.25, (LSTM_G, 4 * LSTM_H, c))).astype(np.float32), device=dev)
@@ -280,12 +291,43 @@ def main() -> None:
                      - cuda_lstm.lstm_multi_reference(xs, w_ih, w_hh, bias)).abs().max())
         if not err <= LSTM_TOL:
             fail(f"lstm_multi C={c} max abs err {err} > {LSTM_TOL}")
-        k_ms = cuda_ms(lambda: cuda_lstm.lstm_multi(xs, w_ih, w_hh, bias))
-        p_ms = cuda_ms(lambda: cuda_lstm.lstm_multi_reference(xs, w_ih, w_hh, bias), iters=5)
+        m_ms = cuda_ms(lambda: cuda_lstm.lstm_multi(xs, w_ih, w_hh, bias))
+        mp_ms = cuda_ms(lambda: cuda_lstm.lstm_multi_reference(xs, w_ih, w_hh, bias), iters=5)
         print(f"K2 lstm_multi G={LSTM_G} B={LSTM_B} C={c} H={LSTM_H} T={LSTM_T}: max abs err "
-              f"{err:.3e} (tol {LSTM_TOL}); time on {card}: kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms")
-        lstm_err = max(lstm_err, err)
-        lstm_ms[c] = (k_ms, p_ms)
+              f"{err:.3e} (tol {LSTM_TOL}); time on {card}: whole call {m_ms:.4f} ms, twin {mp_ms:.4f} ms")
+        # the form the models call: both directions over one x, the second
+        # scanning time backward, states written as (B, G*H, T)
+        x = xs[0].contiguous()
+        got_b = cuda_lstm.lstm_branches(x, w_ih, w_hh, bias, rev)
+        err_b = float((got_b - cuda_lstm.lstm_branches_reference(x, w_ih, w_hh, bias, rev)).abs().max())
+        hs = cuda_lstm.lstm_multi(torch.stack([x, x.flip(-1)]), w_ih, w_hh, bias)
+        err_old = float((got_b - torch.cat([hs[0], hs[1].flip(-1)], dim=1)).abs().max())
+        if not max(err_b, err_old) <= LSTM_TOL:
+            fail(f"lstm_branches C={c} max abs err {err_b} vs twin, {err_old} vs the stacked and "
+                 f"flipped lstm_multi > {LSTM_TOL}")
+        k_ms = cuda_ms(lambda: cuda_lstm.lstm_branches(x, w_ih, w_hh, bias, rev))
+        p_ms = cuda_ms(lambda: cuda_lstm.lstm_branches_reference(x, w_ih, w_hh, bias, rev), iters=5)
+        xp = cuda_lstm.project_shared(x, w_ih)
+        out_b = torch.empty_like(got_b)
+        gh4 = LSTM_G * 4 * LSTM_H
+        cuda_lstm.recurrence(xp, (4 * LSTM_H, LSTM_T * gh4, gh4), w_hh, bias, out_b,
+                             (LSTM_H * LSTM_T, LSTM_G * LSTM_H * LSTM_T), LSTM_B, LSTM_T, 0b10)
+        if not torch.equal(out_b, got_b):
+            fail(f"lstm recurrence C={c}: the kernel alone differs from the whole call")
+        # the whole call is a handful of small launches and the kernel is
+        # shorter than a launch from Python, so CUDA events around either read
+        # the host's pace; the profiler gives the device's times
+        _, call_dev_ms, events = profiled(
+            lambda: [cuda_lstm.lstm_branches(x, w_ih, w_hh, bias, rev) for _ in range(10)])
+        call_dev_ms /= 10
+        rec_ms = sum(self_device_us(e) for e in events if "lstm_multi_kernel" in e.key) / 1e4
+        print(f"K2 lstm_branches B={LSTM_B} C={c} H={LSTM_H} T={LSTM_T} reverse={rev}: max abs err "
+              f"{err_b:.3e} vs twin, {err_old:.3e} vs stacked + flipped lstm_multi (tol {LSTM_TOL}); "
+              f"time on {card}: whole call {k_ms:.4f} ms by CUDA events (the host's pace), "
+              f"{call_dev_ms:.4f} ms of summed kernel time under torch.profiler, of it the "
+              f"recurrence kernel alone {rec_ms:.4f} ms; twin {p_ms:.4f} ms")
+        lstm_err = max(lstm_err, err, err_b, err_old)
+        lstm_ms[c] = (k_ms, p_ms, rec_ms, m_ms, call_dev_ms)
         n_cell = LSTM_G * LSTM_B * LSTM_T * LSTM_H
         lstm_bound[c] = bound(
             nbytes(xs, w_ih, w_hh, bias) + n_cell * 4,
@@ -295,16 +337,19 @@ def main() -> None:
         lib = torch.nn.LSTM(c, LSTM_H, bidirectional=True).to(dev).eval()
         seq = xs[0].permute(2, 0, 1).contiguous()  # (T, B, C)
         with torch.no_grad():
-            lstm_lib_ms[c] = cuda_ms(lambda: lib(seq))
+            lib_ms = cuda_ms(lambda: lib(seq))
+            lib_dev_ms = profiled(lambda: [lib(seq) for _ in range(10)])[1] / 10
+        lstm_lib_ms[c] = (lib_ms, lib_dev_ms)
         print(f"K2 C={c}: bound {lstm_bound[c][0]:.4f} ms ({lstm_bound[c][1]}); "
               f"torch.nn.LSTM(bidirectional=True) on (T {LSTM_T}, B {LSTM_B}, C {c}) "
-              f"{lstm_lib_ms[c]:.4f} ms")
+              f"{lib_ms:.4f} ms by CUDA events, {lib_dev_ms:.4f} ms of summed kernel time")
 
     # q scaled as TPUPickNet scales it (1/sqrt(Dh)), so the scores have the
     # model's spread
-    q, k, v = (torch.as_tensor(rng.normal(size=(MHA_B, MHA_D, MHA_T)).astype(np.float32), device=dev)
-               for _ in range(3))
-    q = q * (MHA_H / MHA_D) ** 0.5
+    q0, k, v = (torch.as_tensor(rng.normal(size=(MHA_B, MHA_D, MHA_T)).astype(np.float32), device=dev)
+                for _ in range(3))
+    mha_scale = (MHA_H / MHA_D) ** 0.5
+    q = q0 * mha_scale
     mha_out = cuda_attn.mha(q, k, v, MHA_H)
     mha_twin = cuda_attn.mha_reference(q, k, v, MHA_H)
     mha_f64 = cuda_attn.mha_reference(q.double(), k.double(), v.double(), MHA_H)
@@ -312,24 +357,44 @@ def main() -> None:
     mha_err = float((mha_out - mha_twin).abs().max())
     if not mha_err <= MHA_TOL:
         fail(f"mha max abs err {mha_err} > {MHA_TOL}")
-    mha_ms = cuda_ms(lambda: cuda_attn.mha(q, k, v, MHA_H), iters=50)
-    mha_plain_ms = cuda_ms(lambda: cuda_attn.mha_reference(q, k, v, MHA_H), iters=50)
+    mha_hm_ms = cuda_ms(lambda: cuda_attn.mha(q, k, v, MHA_H), iters=50)
+    mha_hm_plain_ms = cuda_ms(lambda: cuda_attn.mha_reference(q, k, v, MHA_H), iters=50)
     print(f"K7 mha ({MHA_B}, {MHA_D}, {MHA_T}) H={MHA_H}: max abs err {mha_err:.3e} vs twin (tol "
           f"{MHA_TOL}); vs float64: kernel {float((mha_out - mha_f64).abs().max()):.3e}, twin "
-          f"{float((mha_twin - mha_f64).abs().max()):.3e}; time on {card}: kernel {mha_ms:.4f} ms, "
-          f"twin {mha_plain_ms:.4f} ms")
+          f"{float((mha_twin - mha_f64).abs().max()):.3e}; time on {card}: kernel {mha_hm_ms:.4f} ms, "
+          f"twin {mha_hm_plain_ms:.4f} ms")
+    # the entry the model calls: the same q, k, v read in place from a
+    # (B, T, 3, H, Dh) projection, the scale applied inside the kernel
+    qkv = torch.stack([a.reshape(MHA_B, MHA_H, MHA_D // MHA_H, MHA_T).permute(0, 3, 1, 2)
+                       for a in (q0, k, v)], dim=2).contiguous()
+    qkv_out = cuda_attn.mha_qkv(qkv, mha_scale)
+    qkv_err = float((qkv_out - cuda_attn.mha_qkv_reference(qkv, mha_scale)).abs().max())
+    qkv_vs_hm = float((qkv_out - mha_out.transpose(1, 2)).abs().max())
+    qkv_f64 = float((qkv_out - mha_f64.transpose(1, 2)).abs().max())
+    if not max(qkv_err, qkv_vs_hm) <= MHA_TOL:
+        fail(f"mha_qkv max abs err {qkv_err} vs twin, {qkv_vs_hm} vs the head-major entry > {MHA_TOL}")
+    mha_ms = cuda_ms(lambda: cuda_attn.mha_qkv(qkv, mha_scale), iters=50)
+    mha_plain_ms = cuda_ms(lambda: cuda_attn.mha_qkv_reference(qkv, mha_scale), iters=50)
+    print(f"K7 mha_qkv ({MHA_B}, {MHA_T}, 3, {MHA_H}, {MHA_D // MHA_H}) in place: max abs err "
+          f"{qkv_err:.3e} vs twin, {qkv_vs_hm:.3e} vs the head-major entry (tol {MHA_TOL}), "
+          f"{qkv_f64:.3e} vs float64; time on {card}: kernel {mha_ms:.4f} ms, twin {mha_plain_ms:.4f} ms")
+    mha_err = max(mha_err, qkv_err, qkv_vs_hm)
 
     n_score = MHA_B * MHA_H * MHA_T * MHA_T
-    mha_bound = bound(nbytes(q, k, v, mha_out), flops=(4 * MHA_D // MHA_H + 4) * n_score,
+    mha_bound = bound(nbytes(qkv, qkv_out), flops=(4 * MHA_D // MHA_H + 4) * n_score,
                       sfu=n_score)
-    # the yardstick, (B, H, T, Dh) operands laid out before the clock starts;
-    # q carries the scale already
-    qs, ks, vs = (a.reshape(MHA_B, MHA_H, MHA_D // MHA_H, MHA_T).transpose(2, 3).contiguous()
-                  for a in (q, k, v))
-    mha_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), iters=50)
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0).transpose(2, 3).reshape(q.shape)
-    print(f"K7: bound {mha_bound[0]:.4f} ms ({mha_bound[1]}); F.scaled_dot_product_attention "
-          f"{mha_lib_ms:.4f} ms (max abs diff to the kernel {float((sdpa - mha_out).abs().max()):.3e})")
+    # the yardstick on the same projection: (B, H, T, Dh) views of it, no copy
+    # before the clock; and on operands laid out contiguously beforehand
+    qv, kv, vv = (a.transpose(1, 2) for a in qkv.unbind(2))
+    mha_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv, scale=mha_scale), iters=50)
+    sdpa = F.scaled_dot_product_attention(qv, kv, vv, scale=mha_scale).transpose(1, 2).reshape(qkv_out.shape)
+    qs, ks, vs = (a.contiguous() for a in (qv, kv, vv))
+    mha_lib_packed_ms = cuda_ms(
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=mha_scale), iters=50)
+    print(f"K7: bound {mha_bound[0]:.4f} ms ({mha_bound[1]}); F.scaled_dot_product_attention on "
+          f"views of the projection {mha_lib_ms:.4f} ms (max abs diff to the kernel "
+          f"{float((sdpa - qkv_out).abs().max()):.3e}), on contiguous (B, H, T, Dh) operands "
+          f"{mha_lib_packed_ms:.4f} ms; time on {card}")
 
     # K5: q and k as the model's projections scale them, then saturating tanh
     xa = torch.as_tensor(rng.normal(size=(ATT_B, ATT_C, ATT_T)).astype(np.float32), device=dev)
@@ -379,6 +444,7 @@ def main() -> None:
         return {kn: getattr(mod, attr) for kn, (mod, attr) in counters.items()}
 
     by_path, rates, thresholds_of, device_of, curves_of, optin_kernel_ms = {}, {}, {}, {}, {}, {}
+    ops_of = {}
     for label, arch, margs, pkw, env, overlap, blinding, batch in PATHS:
         saved_env = {k_: os.environ.get(k_) for k_ in env}
         os.environ.update(env)
@@ -446,6 +512,11 @@ def main() -> None:
               f"{dev_ms:.2f} ms (of it "
               + ", ".join(f"{kn} {ms:.3f} ms" for kn, ms in own.items() if ms > 0)
               + f"); idle share against the median {max(0.0, 1 - dev_ms / (med * 1e3)):.3f}")
+        ops_of[label] = {op: (sum(e.count for e in events if e.key == f"aten::{op}"),
+                              sum(self_device_us(e) for e in events if e.key == f"aten::{op}") / 1e3)
+                         for op in ("copy_", "mul")}
+        print(f"{label}: in that call " + ", ".join(
+            f"aten::{op} x {n} ({ms:.3f} ms)" for op, (n, ms) in ops_of[label].items()))
         if optin:
             optin_kernel_ms = own
             for kn in ("addattn_kernel", "condition_kernel", "trigger_scan_kernel"):
@@ -574,6 +645,12 @@ def main() -> None:
           + ", ".join(f"{lab} {r:.1f}" for lab, r in rates.items()))
     print(f"classify_arrays summed kernel ms on {card}: "
           + ", ".join(f"{lab} {ms:.2f}" for lab, ms in device_of.items()))
+    xla_ms, pallas_ms = device_of["tpupicknet/xla"], device_of["tpupicknet/pallas"]
+    print(f"tpupicknet/pallas against tpupicknet/xla on {card}: summed kernel ms {pallas_ms:.2f} vs "
+          f"{xla_ms:.2f} ({(pallas_ms / xla_ms - 1) * 100:+.1f}%); aten::copy_ launches "
+          f"{ops_of['tpupicknet/pallas']['copy_'][0]} vs {ops_of['tpupicknet/xla']['copy_'][0]}, "
+          f"aten::mul launches {ops_of['tpupicknet/pallas']['mul'][0]} vs "
+          f"{ops_of['tpupicknet/xla']['mul'][0]}")
     if optin_kernel_ms:
         print(f"{OPTIN}: summed ms of the route's kernels in one classify_arrays: "
               + ", ".join(f"{kn} {ms:.3f}" for kn, ms in optin_kernel_ms.items() if ms > 0))
@@ -588,11 +665,19 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("trigger_extract", "trigger_extract.cu", "triggers.py:250", "eqtransformer",
               trig_err, trig_ms, trig_plain_ms, trig_bound),
-        # one launch at C=64 (ms, plain_ms, ...) and one at C=16 (*_c16)
+        # lstm_branches, the form the models call, at C=64 and at C=16 (*_c16).
+        # ms, library_ms: summed kernel time of one call under the profiler
+        # (projection included); event_ms, library_event_ms: CUDA events
+        # around back-to-back calls, which read the host's pace; kernel_only_ms
+        # the recurrence kernel alone; multi_event_ms the lstm_multi form
         entry("lstm_multi", "lstm_multi.cu", "lstm.py:76", "eqtransformer", lstm_err,
-              lstm_ms[64][0], lstm_ms[64][1], lstm_bound[64], lstm_lib_ms[64],
-              ms_c16=lstm_ms[16][0], plain_ms_c16=lstm_ms[16][1], bound_ms_c16=lstm_bound[16][0],
-              bound_by_c16=lstm_bound[16][1], library_ms_c16=lstm_lib_ms[16]),
+              lstm_ms[64][4], lstm_ms[64][1], lstm_bound[64], lstm_lib_ms[64][1],
+              event_ms=lstm_ms[64][0], library_event_ms=lstm_lib_ms[64][0],
+              kernel_only_ms=lstm_ms[64][2], multi_event_ms=lstm_ms[64][3],
+              ms_c16=lstm_ms[16][4], plain_ms_c16=lstm_ms[16][1], bound_ms_c16=lstm_bound[16][0],
+              bound_by_c16=lstm_bound[16][1], library_ms_c16=lstm_lib_ms[16][1],
+              event_ms_c16=lstm_ms[16][0], library_event_ms_c16=lstm_lib_ms[16][0],
+              kernel_only_ms_c16=lstm_ms[16][2], multi_event_ms_c16=lstm_ms[16][3]),
         entry("trigger_scan", "trigger_scan.cu", "triggers.py:329", OPTIN, scan_err, scan_ms,
               scan_plain_ms, scan_bound),
         # detrend + peak, EQTransformer's conditioning
@@ -603,8 +688,10 @@ def main() -> None:
         # wired into no forward (as in the JAX package): launches are those of phase 4b
         entry("rescnn", "rescnn.cu", "rescnn.py:112", "eqtransformer/res_cnn section",
               max(res_err, res_twin_err), res_ms, res_plain_ms, res_bound, modules_ms=res_mod_ms),
+        # mha_qkv, the entry the model calls; *_head_major is the mha entry
         entry("mha", "mha.cu", "attention.py:55", "tpupicknet/pallas", mha_err, mha_ms,
-              mha_plain_ms, mha_bound, mha_lib_ms),
+              mha_plain_ms, mha_bound, mha_lib_ms, ms_head_major=mha_hm_ms,
+              plain_ms_head_major=mha_hm_plain_ms, library_ms_contiguous=mha_lib_packed_ms),
     ], "launches_by_path": by_path}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -150,15 +150,15 @@ def test_fused_resolution_order(monkeypatch):
     assert EQTransformer(**SMALL).resolve_fused() == PATTN
     # the constructor field wins over the environment
     assert EQTransformer(fused="plstm+bandattn", **SMALL).resolve_fused() == "plstm+bandattn"
-    assert load_model("eqtransformer", fused=True, **SMALL).resolve_fused() == "plstm+bandattn"
+    assert load_model("eqtransformer", fused=True, device="cpu", **SMALL).resolve_fused() == "plstm+bandattn"
     monkeypatch.setenv("VOLPICK_EQT_FUSED", "1")
     assert EQTransformer(**SMALL).resolve_fused() == "plstm+bandattn"
-    assert load_model("voleqtransformer", fused="pattn+bandattn+plstm", **SMALL).resolve_fused() == PATTN
+    assert load_model("voleqtransformer", fused="pattn+bandattn+plstm", device="cpu", **SMALL).resolve_fused() == PATTN
 
 
 def test_picker_freezes_the_route(monkeypatch):
     monkeypatch.setenv("VOLPICK_EQT_FUSED", PATTN)
-    model = load_model("eqtransformer", **SMALL)
+    model = load_model("eqtransformer", device="cpu", **SMALL)
     WaveformPicker(model, device="cpu")
     monkeypatch.setenv("VOLPICK_EQT_FUSED", "plstm+bandattn")
     assert model.fused == PATTN and model.resolve_fused() == PATTN

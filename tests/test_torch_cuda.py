@@ -3,8 +3,8 @@
 Marked ``cuda``; every test skips when torch sees no CUDA device (decided in
 a fixture, not at import). Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``. Tolerances:
-trigger extraction and trigger scan exact; LSTM, MHA and additive attention
-1e-5 (the tests/test_pallas.py pins); conditioning 2e-5; the res-CNN stack
+trigger extraction and trigger scan exact; LSTM (both forms), MHA (both
+entries) and additive attention 1e-5 (the tests/test_pallas.py pins); conditioning 2e-5; the res-CNN stack
 3e-4; picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another
 order on the card).
 """
@@ -64,17 +64,22 @@ def test_trigger_extract_equals_twin(dev, b, w, k):
         assert g.dtype == r.dtype and torch.equal(g, r)
 
 
-@pytest.mark.parametrize("g,b,c,t,h", [(2, 232, 64, 47, 16), (2, 232, 16, 47, 16),
-                                       (3, 5, 16, 31, 8), (1, 17, 32, 12, 32)])
-def test_lstm_multi_matches_twin(dev, g, b, c, t, h):
-    rng = np.random.default_rng(b + c)
+def _lstm_args(dev, rng, g, c, h):
     args = [
-        rng.normal(size=(g, b, c, t)),
         rng.normal(size=(g, 4 * h, c)) * 0.2,
         rng.normal(size=(g, 4 * h, h)) * 0.2,
         rng.normal(size=(g, 4 * h)) * 0.1,
     ]
-    args = [torch.as_tensor(a.astype(np.float32), device=dev) for a in args]
+    return [torch.as_tensor(a.astype(np.float32), device=dev) for a in args]
+
+
+@pytest.mark.parametrize("g,b,c,t,h", [(2, 232, 64, 47, 16), (2, 232, 16, 47, 16),
+                                       (3, 5, 16, 31, 8), (1, 17, 32, 12, 32),
+                                       (2, 9, 7, 33, 5), (2, 3, 16, 40, 12), (40, 2, 4, 9, 16)])
+def test_lstm_multi_matches_twin(dev, g, b, c, t, h):
+    rng = np.random.default_rng(b + c)
+    xs = torch.as_tensor(rng.normal(size=(g, b, c, t)).astype(np.float32), device=dev)
+    args = [xs] + _lstm_args(dev, rng, g, c, h)
     before = cuda_lstm.launches
     got = cuda_lstm.lstm_multi(*args)
     assert cuda_lstm.launches == before + 1
@@ -82,12 +87,69 @@ def test_lstm_multi_matches_twin(dev, g, b, c, t, h):
     assert err <= 1e-5
 
 
+@pytest.mark.parametrize("t", [1, 47, 200])
+@pytest.mark.parametrize("h", [8, 16, 32])
+@pytest.mark.parametrize("b", [1, 7, 232, 500])
+def test_lstm_both_forms_match_twins(dev, b, h, t):
+    """``lstm_multi`` (no reverse) and ``lstm_branches`` (forward + backward
+    over one x) against their twins, and ``lstm_branches`` against the
+    composition it replaces: stack x with its time flip, ``lstm_multi``, flip
+    back, concatenate."""
+    rng = np.random.default_rng(b * 1000 + h * 10 + t)
+    c = 16
+    x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev)
+    w = _lstm_args(dev, rng, 2, c, h)
+    xs = torch.stack([x, x.flip(-1)])
+    before = cuda_lstm.launches
+    multi = cuda_lstm.lstm_multi(xs, *w)
+    got = cuda_lstm.lstm_branches(x, *w, reverse=(False, True))
+    assert cuda_lstm.launches == before + 2
+    assert got.shape == (b, 2 * h, t) and got.is_contiguous()
+    assert (multi - cuda_lstm.lstm_multi_reference(xs, *w)).abs().max().item() <= 1e-5
+    want = cuda_lstm.lstm_branches_reference(x, *w, reverse=(False, True))
+    assert (got - want).abs().max().item() <= 1e-5
+    old = torch.cat([multi[0], multi[1].flip(-1)], dim=1)
+    assert (got - old).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("reverse", [(True,), (False, False, True), (True, True)])
+def test_lstm_branches_reverse_flags(dev, reverse):
+    rng = np.random.default_rng(len(reverse))
+    g, b, c, t, h = len(reverse), 11, 24, 47, 16
+    x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev)
+    w = _lstm_args(dev, rng, g, c, h)
+    got = cuda_lstm.lstm_branches(x, *w, reverse=reverse)
+    want = cuda_lstm.lstm_branches_reference(x, *w, reverse=reverse)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_lstm_wrapper_refusals(dev):
+    rng = np.random.default_rng(0)
+    xs = torch.zeros(2, 3, 16, 5, device=dev)
+    w_ih, w_hh, bias = _lstm_args(dev, rng, 2, 16, 16)
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_multi(xs.double(), w_ih, w_hh, bias)
+    with pytest.raises(ValueError):
+        cuda_lstm.lstm_multi(xs, w_ih[:, :, :8], w_hh, bias)
+    with pytest.raises(ValueError):
+        cuda_lstm.lstm_multi(xs, w_ih, w_hh, bias[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_lstm.lstm_multi(xs, w_ih, w_hh.transpose(1, 2).contiguous().transpose(1, 2), bias)
+    with pytest.raises(ValueError):
+        cuda_lstm.lstm_branches(xs[0], w_ih, w_hh, bias, reverse=(False,))  # 2 weight sets, 1 flag
+    big = _lstm_args(dev, rng, 1, 16, 33)
+    with pytest.raises(ValueError, match="limit"):  # H = 33
+        cuda_lstm.lstm_multi(xs[:1], *big)
+    with pytest.raises(ValueError, match="limit"):
+        cuda_lstm.lstm_branches(xs[0], *big, reverse=(True,))
+
+
 def test_picker_gpu_matches_cpu(dev):
     rng = np.random.default_rng(3)
     data = (rng.normal(size=(2, 3, 5000)) * 0.1).astype(np.float32)
     data[:, :, 2500:2600] += 2.0 * np.hanning(100).astype(np.float32)
     gpu_model = load_model("eqtransformer", seed=1, in_samples=1504, lstm_blocks=1, device=dev)
-    cpu_model = load_model("eqtransformer", seed=1, in_samples=1504, lstm_blocks=1)
+    cpu_model = load_model("eqtransformer", seed=1, in_samples=1504, lstm_blocks=1, device="cpu")
     kw = dict(overlap=1128, blinding=(200, 200), batch_size=8)
     gpu = WaveformPicker(gpu_model, device=dev)
     cpu = WaveformPicker(cpu_model, device="cpu")
@@ -104,7 +166,7 @@ def test_picker_gpu_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("b,d,t,h", [(128, 128, 94, 4), (3, 32, 16, 2), (5, 64, 127, 2),
-                                     (2, 96, 33, 3), (1, 128, 1, 4)])
+                                     (2, 96, 33, 3), (1, 128, 1, 4), (2, 12, 9, 2), (3, 21, 50, 3)])
 def test_mha_matches_twin(dev, b, d, t, h):
     rng = np.random.default_rng(b + t)
     q, k, v = (torch.as_tensor(rng.normal(size=(b, d, t)).astype(np.float32), device=dev)
@@ -113,6 +175,48 @@ def test_mha_matches_twin(dev, b, d, t, h):
     got = cuda_attn.mha(q, k, v, h)
     assert cuda_attn.launches == before + 1
     assert (got - cuda_attn.mha_reference(q, k, v, h)).abs().max().item() <= 1e-5
+
+
+def _head_major(qkv, scale):
+    """q, k, v of a (B, T, 3, H, Dh) projection packed (B, H·Dh, T), q scaled."""
+    b, t, _, h, dh = qkv.shape
+    q, k, v = (a.permute(0, 2, 3, 1).reshape(b, h * dh, t).contiguous() for a in qkv.unbind(2))
+    return q * scale, k, v
+
+
+@pytest.mark.parametrize("b", [1, 3, 128])
+@pytest.mark.parametrize("t", [1, 5, 94, 127, 128])
+@pytest.mark.parametrize("dh", [8, 16, 32, 6])
+def test_mha_both_entries_match_twins(dev, dh, t, b):
+    """The in-place entry against its twin and against the head-major entry on
+    the same data; Dh = 6 takes the in-place entry off its 16-byte path."""
+    h = 4 if dh == 32 else 2
+    rng = np.random.default_rng(dh * 1000 + t * 10 + b)
+    qkv = torch.as_tensor(rng.normal(size=(b, t, 3, h, dh)).astype(np.float32), device=dev)
+    scale = dh ** -0.5
+    before = cuda_attn.launches
+    got = cuda_attn.mha_qkv(qkv, scale)
+    assert cuda_attn.launches == before + 1
+    assert got.shape == (b, t, h * dh) and got.is_contiguous()
+    assert (got - cuda_attn.mha_qkv_reference(qkv, scale)).abs().max().item() <= 1e-5
+    q, k, v = _head_major(qkv, scale)
+    packed = cuda_attn.mha(q, k, v, h)
+    assert (packed - cuda_attn.mha_reference(q, k, v, h)).abs().max().item() <= 1e-5
+    assert (got - packed.transpose(1, 2)).abs().max().item() <= 1e-5
+
+
+def test_mha_qkv_refusals(dev):
+    """A non-contiguous projection is refused, not copied."""
+    qkv = torch.zeros(2, 10, 3, 2, 16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_attn.mha_qkv(qkv[:, ::2], 0.25)
+    with pytest.raises(ValueError):
+        cuda_attn.mha_qkv(qkv[:, :, :2], 0.25)
+    with pytest.raises(TypeError):
+        cuda_attn.mha_qkv(qkv.double(), 0.25)
+    for shape in ((1, 129, 3, 4, 32), (1, 94, 3, 2, 64)):  # T > 128; Dh = 64 > 32
+        with pytest.raises(ValueError, match="limits"):
+            cuda_attn.mha_qkv(torch.zeros(shape, device=dev), 1.0)
 
 
 def test_mha_refuses_shapes_beyond_the_kernel(dev):
@@ -132,7 +236,7 @@ def test_tpupicknet_pallas_picker_gpu_matches_cpu(dev):
     margs = dict(in_samples=512, d_model=32, n_heads=2, n_layers=2, attn="pallas")
     kw = dict(overlap=256, blinding=(50, 50), batch_size=8)
     gpu = WaveformPicker(load_model("tpupicknet", seed=1, device=dev, **margs), device=dev)
-    cpu = WaveformPicker(load_model("tpupicknet", seed=1, **margs), device="cpu")
+    cpu = WaveformPicker(load_model("tpupicknet", seed=1, device="cpu", **margs), device="cpu")
     before = cuda_attn.launches
     gc = gpu.annotate_array(data, **kw)
     assert cuda_attn.launches > before and (cuda_attn.launches - before) % 2 == 0
@@ -282,7 +386,7 @@ def test_optin_picker_gpu_matches_cpu(dev, monkeypatch):
     margs = dict(in_samples=1504, lstm_blocks=1, fused="plstm+bandattn+pattn")
     gpu = WaveformPicker(load_model("eqtransformer", seed=1, device=dev, **margs), device=dev,
                          use_pallas=True)
-    cpu = WaveformPicker(load_model("eqtransformer", seed=1, **margs), device="cpu", use_pallas=True)
+    cpu = WaveformPicker(load_model("eqtransformer", seed=1, device="cpu", **margs), device="cpu", use_pallas=True)
     kw = dict(overlap=1128, blinding=(200, 200), batch_size=8)
     before = (cuda_addattn.launches, cuda_cond.launches, cuda_trig.scan_launches, cuda_trig.launches)
     gc = gpu.annotate_array(data, **kw)

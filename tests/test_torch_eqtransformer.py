@@ -149,35 +149,35 @@ def test_state_dict_keys_match_torch_oracle(port_model, windows):
 
 
 def test_load_model_is_seeded(windows):
-    a = load_model("eqtransformer", seed=3, **SMALL)
-    b = load_model("eqtransformer", seed=3, **SMALL)
-    c = load_model("eqtransformer", seed=4, **SMALL)
+    a = load_model("eqtransformer", seed=3, device="cpu", **SMALL)
+    b = load_model("eqtransformer", seed=3, device="cpu", **SMALL)
+    c = load_model("eqtransformer", seed=4, device="cpu", **SMALL)
     for k, v in a.state_dict().items():
         assert torch.equal(v, b.state_dict()[k])
     assert not torch.equal(a.encoder.convs[0].weight, c.encoder.convs[0].weight)
     with pytest.raises(ValueError):
-        load_model("nosuchnet")
+        load_model("nosuchnet", device="cpu")
 
 
 def test_from_pretrained_reads_json_and_weights(tmp_path, windows):
-    src = load_model("eqtransformer", seed=7, **SMALL)
+    src = load_model("eqtransformer", seed=7, device="cpu", **SMALL)
     d = tmp_path / "eqtransformer"
     d.mkdir()
     torch.save(src.state_dict(), d / "volpick.pt.v1")
     meta = {"model_args": dict(SMALL, sampling_rate=100.0),
             "default_args": {"P_threshold": 0.21, "S_threshold": 0.22}}
     (d / "volpick.json.v1").write_text(json.dumps(meta))
-    model = from_pretrained("eqtransformer", search_paths=[str(tmp_path)])
+    model = from_pretrained("eqtransformer", search_paths=[str(tmp_path)], device="cpu")
     assert model.default_args == meta["default_args"]
     for g, w in zip(_port(model, windows), _port(src, windows)):
         np.testing.assert_array_equal(g, w)
     with pytest.raises(FileNotFoundError):
-        from_pretrained("eqtransformer", search_paths=[str(tmp_path / "nowhere")])
+        from_pretrained("eqtransformer", search_paths=[str(tmp_path / "nowhere")], device="cpu")
 
 
 def test_published_weights_load_strict():
     base = os.environ.get("VOLPICK_TPU_MODELS", "")
     if not os.path.exists(os.path.join(base, "eqtransformer", "volpick.pt.v1")):
         pytest.skip("published volpick weights not available (set VOLPICK_TPU_MODELS)")
-    model = from_pretrained("eqtransformer", search_paths=[base])
+    model = from_pretrained("eqtransformer", search_paths=[base], device="cpu")
     assert model.in_samples == 6000 and "P_threshold" in model.default_args

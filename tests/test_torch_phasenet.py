@@ -101,7 +101,7 @@ def test_converter_inverts_the_jax_importer(tmp_path):
     """Port state dict → file → JAX ``import_phasenet`` (which flips and
     transposes the ConvTranspose weights) → ``phasenet_state_dict_from_jax``
     gives back every tensor exactly."""
-    model = load_model("phasenet", seed=4)
+    model = load_model("phasenet", seed=4, device="cpu")
     path = tmp_path / "volpick.pt.v1"
     torch.save(model.state_dict(), path)
     back = phasenet_state_dict_from_jax(import_phasenet(str(path)))
@@ -149,12 +149,12 @@ def test_npz_v1_export_loads_without_jax_and_pt_wins(tmp_path, jax_and_port):
     assert arch == "phasenet" and model.default_args == {"P_threshold": 0.4}
     x = _windows(1, 3001, seed=23)
     np.testing.assert_array_equal(_port(model, x), _port(port, x))
-    loaded = from_pretrained("phasenet", "mine", search_paths=[str(tmp_path)])
+    loaded = from_pretrained("phasenet", "mine", search_paths=[str(tmp_path)], device="cpu")
     np.testing.assert_array_equal(_port(loaded, x), _port(port, x))
 
-    other = load_model("phasenet", seed=9)
+    other = load_model("phasenet", seed=9, device="cpu")
     torch.save(other.state_dict(), d / "mine.pt.v1")
-    picked = from_pretrained("phasenet", "mine", search_paths=[str(tmp_path)])
+    picked = from_pretrained("phasenet", "mine", search_paths=[str(tmp_path)], device="cpu")
     np.testing.assert_array_equal(_port(picked, x), _port(other, x))
     meta = json.loads((d / "mine.json.v1").read_text())
     assert picked.in_samples == meta["model_args"]["in_samples"] == 3001

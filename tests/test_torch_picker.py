@@ -7,6 +7,7 @@ within 2e-5 (float32 sums in another order). A small EQTransformer pins the
 model path: curves within 2e-4 of the JAX picker (the EQT forward pin).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -25,7 +26,7 @@ from volpick_tpu.models.torch_import import import_eqtransformer
 from volpick_tpu.ops.triggers import extract_triggers_batched as jax_extract
 from volpick_tpu.picker.annotate import WaveformPicker as JaxPicker
 from volpick_tpu.picker.oracle import oracle_annotate, oracle_classify
-from volpick_tpu_torch.models import load_model
+from volpick_tpu_torch.models import from_pretrained, load_model
 from volpick_tpu_torch.models.convert import eqtransformer_state_dict_from_jax
 from volpick_tpu_torch.ops.triggers import extract_triggers_batched
 from volpick_tpu_torch.picker import WaveformPicker
@@ -118,7 +119,7 @@ def _eqt_stream(rng, n, stations=("ST1", "ST2")):
 def small_eqt(tmp_path_factory):
     """The port's seeded model, carried to JAX through the JAX package's own
     torch importer (a state-dict file round trip)."""
-    model = load_model("eqtransformer", seed=1, in_samples=1504, lstm_blocks=1)
+    model = load_model("eqtransformer", seed=1, in_samples=1504, lstm_blocks=1, device="cpu")
     path = tmp_path_factory.mktemp("eqt") / "volpick.pt.v1"
     torch.save(model.state_dict(), path)
     params = import_eqtransformer(str(path), n_lstm=1)
@@ -168,6 +169,31 @@ def test_cuda_device_without_cuda_raises():
         WaveformPicker(TorchDummyNet(), device="cuda")
     with pytest.raises(ValueError):
         WaveformPicker(TorchDummyNet(), device="meta")
+
+
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """``device=None`` is the card: without CUDA the picker, ``load_model`` and
+    ``from_pretrained`` raise and name ``device="cpu"``; with it they run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(in_samples=1504, lstm_blocks=1)
+    src = load_model("eqtransformer", seed=2, device="cpu", **small)
+    d = tmp_path / "eqtransformer"
+    d.mkdir()
+    torch.save(src.state_dict(), d / "volpick.pt.v1")
+    (d / "volpick.json.v1").write_text(json.dumps({"model_args": small}))
+    for call in (
+        lambda **kw: WaveformPicker(TorchDummyNet(), **kw),
+        lambda **kw: load_model("eqtransformer", **small, **kw),
+        lambda **kw: from_pretrained("eqtransformer", search_paths=[str(tmp_path)], **kw),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call(device=None)
+        got = call(device="cpu")
+        model = got.model if isinstance(got, WaveformPicker) else got
+        assert all(p.device.type == "cpu" for p in model.parameters())
+    assert WaveformPicker(TorchDummyNet(), device="cpu").device == torch.device("cpu")
 
 
 def test_port_imports_no_jax():

@@ -106,6 +106,6 @@ def test_classify_matches_jax_picker(case):
 def test_voleqt_windows_are_demeaned_as_in_jax():
     """The JAX picker detrends only models named "EQTransformer"; the port
     keeps that rule, so VolEQTransformer windows are demeaned."""
-    assert WaveformPicker(VolEQTransformer(**VOL_SMALL)).detrend is False
+    assert WaveformPicker(VolEQTransformer(**VOL_SMALL), device="cpu").detrend is False
     assert JaxPicker(JaxVolEQT(**VOL_SMALL), {}).detrend is False
-    assert WaveformPicker(PhaseNet()).detrend is False
+    assert WaveformPicker(PhaseNet(), device="cpu").detrend is False

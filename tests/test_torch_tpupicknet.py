@@ -63,6 +63,68 @@ def test_mha_twin_matches_softmax_attention(b, d, t, h):
     np.testing.assert_allclose(got, want, atol=MHA_ATOL)
 
 
+@pytest.mark.parametrize("b,t,h,dh", [(3, 16, 2, 16), (2, 94, 4, 32), (2, 127, 2, 32)])
+def test_mha_qkv_twin_matches_head_major_twin_and_pallas(b, t, h, dh):
+    """The in-place entry on a (B, T, 3, H, Dh) projection against the
+    head-major twin and the Pallas kernel on the same q, k, v, packed and
+    scaled as ``volpick_tpu/models/tpupicknet.py`` packs them."""
+    qkv = np.random.default_rng(t + dh).normal(size=(b, t, 3, h, dh)).astype(np.float32)
+    scale = np.float32(1.0 / np.sqrt(dh))
+    before = cuda_attn.launches
+    got = cuda_attn.mha_qkv(torch.as_tensor(qkv), float(scale)).numpy()
+    assert cuda_attn.launches == before  # a CPU tensor never reaches the kernel
+    assert got.shape == (b, t, h * dh)
+    q, k, v = (qkv[:, :, i].transpose(0, 2, 3, 1).reshape(b, h * dh, t) for i in range(3))
+    q = q * scale
+    packed = cuda_attn.mha_reference(*(torch.as_tensor(np.ascontiguousarray(a)) for a in (q, k, v)), h)
+    np.testing.assert_allclose(got, packed.numpy().transpose(0, 2, 1), atol=MHA_ATOL)
+    want = np.asarray(mha_pallas(*(jnp.asarray(a) for a in (q, k, v)), h, interpret=True))
+    np.testing.assert_allclose(got, want.transpose(0, 2, 1), atol=MHA_ATOL)
+
+
+def test_attention_hands_the_kernel_entry_the_projection_itself(small, monkeypatch):
+    """Under "pallas" no packing copy, scale pass or transpose stands between
+    the block's projection and K7's entry: ``_attention`` passes its argument
+    on untouched, and the forward hands it the reshaped matmul output."""
+    _, _, port = small
+    seen = []
+
+    def spy(qkv, scale):
+        seen.append((qkv, scale))
+        return cuda_attn.mha_qkv(qkv, scale)
+
+    monkeypatch.setattr(tpn, "mha_qkv", spy)
+    b, t, h, dh = 2, port.n_tokens, port.n_heads, port.d_model // port.n_heads
+    qkv = torch.as_tensor(np.random.default_rng(9).normal(size=(b, t, 3, h, dh)).astype(np.float32))
+    out = port._attention(qkv, "pallas")
+    assert out.shape == (b, t, h * dh) and out.is_contiguous()
+    assert seen[0][0] is qkv and seen[0][0].data_ptr() == qkv.data_ptr()
+    assert seen[0][1] == pytest.approx(dh ** -0.5)
+    np.testing.assert_allclose(out.numpy(), port._attention(qkv, "xla").numpy(), atol=MHA_ATOL)
+
+    seen.clear()
+    with torch.no_grad():  # views keep their ._base here, unlike under inference_mode
+        port(torch.as_tensor(_windows(2, 512)), attn="pallas")
+    assert len(seen) == port.n_layers
+    for arg, _ in seen:
+        assert tuple(arg.shape) == (2, t, 3, h, dh) and arg.is_contiguous()
+        # a view of the matmul's output: exactly its B*T*3*D elements, from its start
+        assert arg._base is not None and arg._base.data_ptr() == arg.data_ptr()
+        assert arg._base.numel() == arg.numel()
+
+
+def test_mha_qkv_rejects_what_the_kernel_does_not_take():
+    qkv = torch.zeros(2, 10, 3, 2, 16)
+    with pytest.raises(ValueError):
+        cuda_attn.mha_qkv(qkv[:, :, :2], 0.25)
+    with pytest.raises(ValueError):
+        cuda_attn.mha_qkv(qkv[0], 0.25)
+    with pytest.raises(TypeError):
+        cuda_attn.mha_qkv(qkv.double(), 0.25)
+    assert cuda_attn.shared_bytes(32, 94) == (3 * 96 * 36 + 96 * 100) * 4
+    assert cuda_attn.shared_bytes(cuda_attn.MAX_HEAD_DIM, cuda_attn.MAX_TOKENS) <= cuda_attn.MAX_SHARED_BYTES
+
+
 def test_mha_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(2, 64, 10)
     with pytest.raises(ValueError):
@@ -164,7 +226,7 @@ def test_attn_resolution_and_picker_freeze(monkeypatch):
     monkeypatch.setenv("VOLPICK_TPN_ATTN", " Pallas ")
     assert model.resolve_attn() == "pallas"
     assert TPUPickNet(attn="xla", **SMALL).resolve_attn() == "xla"
-    picker = WaveformPicker(model)
+    picker = WaveformPicker(model, device="cpu")
     assert model.attn == "pallas" and picker.model is model
     monkeypatch.setenv("VOLPICK_TPN_ATTN", "xla")
     assert model.resolve_attn() == "pallas"
@@ -200,7 +262,7 @@ def test_npz_v1_export_roundtrip(small, tmp_path, legacy):
     x = _windows(2, 512, seed=34)
     want = np.asarray(jmodel.apply(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x), attn="xla"))
     np.testing.assert_allclose(_port(model, x, attn="xla"), want, atol=ATOL)
-    loaded = from_pretrained("tpupicknet", "tpn", search_paths=[str(tmp_path)])
+    loaded = from_pretrained("tpupicknet", "tpn", search_paths=[str(tmp_path)], device="cpu")
     np.testing.assert_array_equal(_port(loaded, x, attn="xla"), _port(model, x, attn="xla"))
 
 

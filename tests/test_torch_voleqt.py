@@ -76,7 +76,7 @@ def test_one_more_head_than_eqtransformer():
     assert VolEQTransformer.name == "VolEQTransformer"
     assert VolEQTransformer(**SMALL).detection_branches == (
         ("decoder_d", "conv_d"), ("decoder_lp", "conv_lp"))
-    a, b = load_model("voleqtransformer", seed=5, **SMALL), load_model("voleqtransformer", seed=5, **SMALL)
+    a, b = (load_model("voleqtransformer", seed=5, device="cpu", **SMALL) for _ in range(2))
     for k, v in a.state_dict().items():
         assert torch.equal(v, b.state_dict()[k]), k
 
@@ -90,6 +90,6 @@ def test_npz_v1_and_pt_v1_load(small, tmp_path):
     for g, w in zip(_port(model, x), _port(port, x)):
         np.testing.assert_array_equal(g, w)
     torch.save(port.state_dict(), d / "vol.pt.v1")
-    loaded = from_pretrained("voleqtransformer", "vol", search_paths=[str(tmp_path)])
+    loaded = from_pretrained("voleqtransformer", "vol", search_paths=[str(tmp_path)], device="cpu")
     for g, w in zip(_port(loaded, x), _port(port, x)):
         np.testing.assert_array_equal(g, w)

@@ -1,120 +1,360 @@
-// Softmax multi-head self-attention over head-major packed (B, H*Dh, T)
-// float32 tensors: per window b and head h, out_h = softmax_s(q_h^T k_h) v_h,
-// the scale already folded into q, the row max subtracted and the
-// exponentials divided by their plain sum.
+// Softmax multi-head self-attention on float32: per window b and head h,
+// out_h = softmax_s(q_h^T k_h) v_h, the row max subtracted and the
+// exponentials divided by their plain sum (no eps).
 //
 // Replaces: volpick_tpu/ops/pallas/attention.py::mha_pallas (_kernel). As
-// there, one window's attention never leaves on-chip memory: the scores and
-// probabilities of a query row live in registers, q/k/v of the head in
-// shared memory.
+// there, one window's attention never leaves on-chip memory.
 //
-// What bounds it on an H100: latency and launch, not bytes or FLOPs. On
+// What bounds it on an H100: float32 operations outside the tensor cores
+// (a single-pass TF32 or bf16 product does not hold the 1e-5 parity). On
 // TPUPickNet's path (B = 128 windows a step, H = 4, Dh = 32, T = 94) one
-// launch reads 3 x 6.2 MB and writes 6.2 MB (~7 us of HBM traffic), and
-// does 2 x 128 x 4 x 94^2 x 32 = 290 M float32 FMAs (QK^T and PV), ~9 us at
-// the card's 67 TFLOP/s outside the tensor cores.
+// launch does 2 x 128 x 4 x 94^2 x 32 = 290 M FMAs (QK^T and PV), ~9 us at
+// the card's 67 TFLOP/s, against ~7 us for its 24.6 MB of device-memory
+// traffic. In practice the shared-memory load pipe sets the pace: a 16-byte
+// load costs a warp 4 cycles of it unless the 8 lanes of a quarter-warp read
+// one address, so the design is about FMAs per load, and the softmax between
+// the two products is bound by its instruction count.
 //
-// Design: one CTA per (window, head), 512 CTAs a step, 8 warps each. The
-// head's q, k and v slices are contiguous Dh x T blocks of the packed layout;
-// they are staged into dynamic shared memory (3 x 32 x 95 x 4 B = 36.5 KB at
-// the path's shapes, under the 48 KB a launch may use without opting in)
-// with an odd row stride, so a warp reading one column (32 rows) of a tile
-// hits 32 banks. One warp owns a query row at a time: lane l holds the
-// scores of keys l, l + 32, l + 64, l + 96 in registers, warp shuffles give
-// the row max and sum, and then lane d accumulates output channel d,
-// taking each probability from the lane that holds it by shuffle. The
-// finished row is written over the q column it came from (no other warp
-// reads that column), and the block copies the tile out coalesced.
+// Design: one kernel body, two layouts, told apart by strides.
+// - mha_f32 keeps the JAX package's head-major (B, H*Dh, T) contract.
+// - mha_qkv_f32 reads q, k, v in place from the model's projection
+//   (B, T, 3, H, Dh), multiplies the scale into q while staging (one float32
+//   multiply an element) and writes (B, T, H*Dh): no packing copy, no scale
+//   pass, no transpose around the launch. A head's row of a token is Dh
+//   contiguous floats there, so staging and write-back move 16 bytes a thread.
+// One CTA per (window, head). q and k go to shared memory with cp.async in
+// one commit group and v in a second that is waited for only before PV, so
+// the v load hides behind QK^T. All three tiles are token-major (T, Dh) with
+// a row stride that is a multiple of 4 floats whose quarter is odd: float4
+// loads along Dh stay aligned and consecutive rows start 4 banks apart.
+// QK^T: each thread owns an 8 x 4 block of scores (rows strided by ceil(T/8),
+// columns by ceil(T/4), so the lanes of a warp read consecutive rows) and
+// feeds 128 FMAs from 12 float4 loads. The scores go to shared memory once
+// (about 80 KB a CTA with q, k, v at T = 94: above 48 KB, so the launch opts
+// in to large dynamic shared memory; two CTAs an SM, also by registers). One
+// warp a row, four rows at a time so that their shuffles, exponentials and
+// divisions overlap, turns them into probabilities in place with IEEE expf
+// and division, in the order of the plain twin. PV is a second
+// register-tiled product: a thread owns up to 4 rows x 4 channels and feeds
+// 64 FMAs from 8 float4 loads.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
 constexpr int kLanes = 32;
-constexpr int kPerLane = 4;  // scores per lane: T <= 128
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRows = 8;     // score rows a thread owns in QK^T
+constexpr int kCols = 4;     // score columns a thread owns in QK^T
+constexpr int kPvRows = 4;   // output rows a thread owns in PV
+constexpr int kPerLane = 4;  // scores of a row a lane holds in the softmax: T <= 128
+constexpr int kSmRows = 4;   // rows a warp takes through the softmax together
+constexpr int kMaxThreads = 512;
 
-// q, k, v, out (B, H*Dh, T) contiguous; grid B*H; blockDim kWarps*32;
-// dynamic shared memory 3 * Dh * (T | 1) floats. Dh <= 32, T <= 128.
-__global__ void __launch_bounds__(kWarps * kLanes)
+// Phases compiled out, for timing only (scripts/k7_phases.py builds the file
+// with -DMHA_SKIP=<bits>; the results are then wrong): 1 QK^T, 2 softmax, 4 PV.
+#ifndef MHA_SKIP
+#define MHA_SKIP 0
+#endif
+constexpr int kSkip = MHA_SKIP;
+
+// element strides of a (window, head, token, channel) view
+struct Strides {
+  long long b;
+  int h, t, c;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Row stride of the (T, Dh) shared tiles: Dh rounded up to a multiple of 4,
+// plus 4 where that leaves an even number of float4s (see the note above).
+__host__ __device__ inline int padded_dh(int dh) {
+  const int d4 = (dh + 3) / 4 * 4;
+  return ((d4 / 4) & 1) ? d4 : d4 + 4;
+}
+
+// Calls f(token, channel) once for each piece of a (T, Dh) tile that this
+// thread moves: float4 pieces along Dh where kVec (channel stride 1,
+// Dh % 4 == 0), else single floats, 8 tokens x 4 channels a warp, so that both
+// a token-contiguous and a channel-contiguous side see whole 32-byte sectors
+// and the shared side sees 32 banks.
+template <bool kVec, class F>
+__device__ __forceinline__ void for_each_piece(int t, int dh, F f) {
+  if (kVec) {
+    const int nch = dh / 4;
+    for (int e = threadIdx.x; e < t * nch; e += blockDim.x) {
+      const int row = e / nch;
+      f(row, (e - row * nch) * 4);
+    }
+  } else {
+    const int nd4 = (dh + 3) / 4;
+    const int n = nd4 * ((t + 7) / 8) * kLanes;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int blk = e / kLanes, l = e % kLanes;
+      const int d = (blk % nd4) * 4 + l / 8;
+      const int tok = (blk / nd4) * 8 + l % 8;
+      if (d < dh && tok < t) f(tok, d);
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void stage(float* dst, const float* src, int st, int sc, int t, int dh,
+                                      int dp) {
+  for_each_piece<kVec>(t, dh, [&](int tok, int d) {
+    if (kVec) {
+      cp_async16(dst + tok * dp + d, src + static_cast<long long>(tok) * st + d);
+    } else {
+      cp_async4(dst + tok * dp + d, src + static_cast<long long>(tok) * st + static_cast<long long>(d) * sc);
+    }
+  });
+}
+
+// grid B*H; blockDim = ceil(T/8) * ceil(T/4) rounded up to whole warps;
+// dynamic shared memory (3 * TP * DP + TP * PP) floats with TP = 8 ceil(T/8),
+// DP = padded_dh(Dh), PP = 4 ceil(T/4) + 4. Dh <= 32, T <= 128.
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 mha_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           float* __restrict__ out, int dh, int t) {
-  extern __shared__ float smem[];
-  const int ld = t | 1;
-  float* qs = smem;
-  float* ks = qs + dh * ld;
-  float* vs = ks + dh * ld;
-  // block = b * H + h: the head's rows h*Dh .. h*Dh+Dh-1 of window b are
-  // one contiguous Dh x T block
-  const size_t base = static_cast<size_t>(blockIdx.x) * dh * t;
-  const int n = dh * t;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / t;
-    const int c = i - r * t;
-    qs[r * ld + c] = q[base + i];
-    ks[r * ld + c] = k[base + i];
-    vs[r * ld + c] = v[base + i];
+           float* __restrict__ out, Strides in, Strides os, int n_heads, int dh, int t,
+           float scale) {
+  extern __shared__ float4 smem4[];
+  const int n8 = (t + kRows - 1) / kRows, n4 = (t + kCols - 1) / kCols;
+  const int tp = n8 * kRows, tp4 = n4 * kCols;
+  const int dp = padded_dh(dh), dh4 = (dh + 3) / 4 * 4, pp = tp4 + 4;
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + tp * dp;
+  float* vs = ks + tp * dp;
+  float* ps = vs + tp * dp;
+  const int tid = threadIdx.x;
+
+  const int wb = blockIdx.x / n_heads, wh = blockIdx.x % n_heads;
+  const long long base = wb * in.b + static_cast<long long>(wh) * in.h;
+  stage<kVec>(qs, q + base, in.t, in.c, t, dh, dp);
+  stage<kVec>(ks, k + base, in.t, in.c, t, dh, dp);
+  cp_async_commit();
+  stage<kVec>(vs, v + base, in.t, in.c, t, dh, dp);
+  cp_async_commit();
+
+  // zeros where the products read past T or Dh
+  for (int e = t * dp + tid; e < tp * dp; e += blockDim.x) qs[e] = ks[e] = vs[e] = 0.0f;
+  const int padc = dp - dh;
+  for (int e = tid; e < t * padc; e += blockDim.x) {
+    const int i = (e / padc) * dp + dh + e % padc;
+    qs[i] = ks[i] = vs[i] = 0.0f;
+  }
+
+  cp_async_wait<1>();  // this thread's pieces of q and k have landed
+  if (scale != 1.0f) {
+    for_each_piece<kVec>(t, dh, [&](int tok, int d) {
+      if (kVec) {
+        float4* p = reinterpret_cast<float4*>(qs + tok * dp + d);
+        float4 x = *p;
+        x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+        *p = x;
+      } else {
+        qs[tok * dp + d] *= scale;
+      }
+    });
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const float* vrow = vs + (lane < dh ? lane : 0) * ld;
-  for (int row = warp; row < t; row += kWarps) {
-    float s[kPerLane];
-    float m = -INFINITY;
+  // ---- scores: rows ti + n8 * a, columns tj + n4 * c
+  if (!(kSkip & 1) && tid < n8 * n4) {
+    const int ti = tid / n4, tj = tid % n4;
+    float acc[kRows][kCols];
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int j = i * kLanes + lane;
-      float acc = -INFINITY;
-      if (j < t) {
-        acc = 0.0f;
-        for (int d = 0; d < dh; ++d) acc = fmaf(qs[d * ld + row], ks[d * ld + j], acc);
-      }
-      s[i] = acc;
-      m = fmaxf(m, acc);
-    }
-    for (int off = kLanes / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-    float sum = 0.0f;
+    for (int a = 0; a < kRows; ++a)
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      s[i] = (i * kLanes + lane < t) ? expf(s[i] - m) : 0.0f;
-      sum += s[i];
-    }
-    for (int off = kLanes / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+      for (int c = 0; c < kCols; ++c) acc[a][c] = 0.0f;
+    for (int d = 0; d < dh4; d += 4) {
+      float4 kv[kCols];
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) s[i] = s[i] / sum;
-
-    float o = 0.0f;
+      for (int c = 0; c < kCols; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(ks + (tj + n4 * c) * dp + d);
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int j0 = i * kLanes;
-      const int cnt = min(kLanes, t - j0);  // the same on every lane
-      for (int src = 0; src < cnt; ++src) {
-        o = fmaf(__shfl_sync(kFull, s[i], src), vrow[j0 + src], o);
+      for (int a = 0; a < kRows; ++a) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + (ti + n8 * a) * dp + d);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          float s = acc[a][c];
+          s = fmaf(qv.x, kv[c].x, s);
+          s = fmaf(qv.y, kv[c].y, s);
+          s = fmaf(qv.z, kv[c].z, s);
+          s = fmaf(qv.w, kv[c].w, s);
+          acc[a][c] = s;
+        }
       }
     }
-    // every lane finished reading column `row` of q before the shuffles above
-    if (lane < dh) qs[lane * ld + row] = o;
+#pragma unroll
+    for (int a = 0; a < kRows; ++a) {
+      const int i = ti + n8 * a;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int j = tj + n4 * c;
+        if (i < t && j < t) ps[i * pp + j] = acc[a][c];
+      }
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / t;
-    out[base + i] = qs[r * ld + (i - r * t)];
+
+  // ---- softmax in place, one warp a row and kSmRows rows at a time, so that
+  // the shuffles, exponentials and divisions of independent rows overlap;
+  // zeros in columns T .. tp4 - 1
+  const int warp = tid / kLanes, lane = tid % kLanes;
+  for (int r0 = warp * kSmRows; r0 < t && !(kSkip & 2); r0 += (blockDim.x / kLanes) * kSmRows) {
+    float s[kSmRows][kPerLane], m[kSmRows], sum[kSmRows];
+#pragma unroll
+    for (int r = 0; r < kSmRows; ++r) {
+      const float* pr = ps + min(r0 + r, t - 1) * pp;
+      m[r] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int j = i * kLanes + lane;
+        s[r][i] = j < t ? pr[j] : -INFINITY;
+        m[r] = fmaxf(m[r], s[r][i]);
+      }
+    }
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int r = 0; r < kSmRows; ++r) m[r] = fmaxf(m[r], __shfl_xor_sync(kFull, m[r], off));
+#pragma unroll
+    for (int r = 0; r < kSmRows; ++r) {
+      sum[r] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        if (i * kLanes < t) {  // the same on every lane
+          s[r][i] = (i * kLanes + lane < t) ? expf(s[r][i] - m[r]) : 0.0f;
+          sum[r] += s[r][i];
+        }
+      }
+    }
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int r = 0; r < kSmRows; ++r) sum[r] += __shfl_xor_sync(kFull, sum[r], off);
+#pragma unroll
+    for (int r = 0; r < kSmRows; ++r) {
+      if (r0 + r < t) {
+        float* pr = ps + (r0 + r) * pp;
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+          const int j = i * kLanes + lane;
+          if (j < t) {
+            pr[j] = s[r][i] / sum[r];
+          } else if (j < tp4) {
+            pr[j] = 0.0f;
+          }
+        }
+      }
+    }
   }
+  cp_async_wait<0>();  // v
+  __syncthreads();
+
+  // ---- PV: thread (row group rg, channel group dg) owns rows rg + nrg * a
+  // and channels 4 dg .. 4 dg + 3
+  const int ndg = dh4 / 4;
+  const int nrg = blockDim.x / ndg;
+  const int dg = tid % ndg, rg = tid / ndg;
+  float* obase = out + wb * os.b + static_cast<long long>(wh) * os.h;
+  for (int r0 = rg; r0 < t && rg < nrg && !(kSkip & 4); r0 += kPvRows * nrg) {
+    float4 acc[kPvRows];
+#pragma unroll
+    for (int a = 0; a < kPvRows; ++a) acc[a] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < tp4; j += 4) {
+      float4 vv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        vv[e] = *reinterpret_cast<const float4*>(vs + (j + e) * dp + dg * 4);
+#pragma unroll
+      for (int a = 0; a < kPvRows; ++a) {
+        const int i = r0 + a * nrg;
+        if (i < t) {
+          const float4 p = *reinterpret_cast<const float4*>(ps + i * pp + j);
+          const float pe[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[a].x = fmaf(pe[e], vv[e].x, acc[a].x);
+            acc[a].y = fmaf(pe[e], vv[e].y, acc[a].y);
+            acc[a].z = fmaf(pe[e], vv[e].z, acc[a].z);
+            acc[a].w = fmaf(pe[e], vv[e].w, acc[a].w);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kPvRows; ++a) {
+      const int i = r0 + a * nrg;
+      if (i < t) {
+        // token-major output: 16 bytes a thread straight to device memory;
+        // otherwise through the q tile, which nothing reads any more
+        float* dst = kVec ? obase + static_cast<long long>(i) * os.t + dg * 4 : qs + i * dp + dg * 4;
+        *reinterpret_cast<float4*>(dst) = acc[a];
+      }
+    }
+  }
+  if (!kVec) {
+    __syncthreads();
+    for_each_piece<false>(t, dh, [&](int tok, int d) {
+      obase[static_cast<long long>(tok) * os.t + static_cast<long long>(d) * os.c] = qs[tok * dp + d];
+    });
+  }
+}
+
+int launch(const float* q, const float* k, const float* v, float* out, Strides in, Strides os,
+           int b, int h, int dh, int t, float scale, bool vec, cudaStream_t stream) {
+  const int n8 = (t + kRows - 1) / kRows, n4 = (t + kCols - 1) / kCols;
+  const int threads = (n8 * n4 + kLanes - 1) / kLanes * kLanes;
+  const int tp = n8 * kRows;
+  const size_t smem = static_cast<size_t>(3 * tp * padded_dh(dh) + tp * (n4 * kCols + 4)) * sizeof(float);
+  auto kernel = vec ? mha_kernel<true> : mha_kernel<false>;
+  if (smem > 48 * 1024) {
+    // above 48 KB a launch has to opt in; the attribute is per function and device
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<b * h, threads, smem, stream>>>(q, k, v, out, in, os, h, dh, t, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, out (B, H*Dh, T) float32, contiguous on the device; Dh <= 32,
-// T <= 128 and 3 * Dh * (T | 1) * 4 bytes <= 48 KB (checked by the caller,
+// q, k, v, out (B, H*Dh, T) float32, contiguous on the device, any scale
+// already in q; Dh <= 32, T <= 128 (checked by the caller,
 // ops/cuda/attention.py). Returns the launch's cudaGetLastError().
 extern "C" int mha_f32(const float* q, const float* k, const float* v, float* out, int b, int h,
                        int dh, int t, void* stream) {
-  const size_t smem = static_cast<size_t>(3 * dh * (t | 1)) * sizeof(float);
-  mha_kernel<<<b * h, kWarps * kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, dh, t);
-  return static_cast<int>(cudaGetLastError());
+  const Strides s{static_cast<long long>(h) * dh * t, dh * t, 1, t};
+  return launch(q, k, v, out, s, s, b, h, dh, t, 1.0f, false, static_cast<cudaStream_t>(stream));
+}
+
+// qkv (B, T, 3, H, Dh) float32, contiguous: q, k, v read in place, q
+// multiplied by `scale` on its way to shared memory; out (B, T, H*Dh).
+extern "C" int mha_qkv_f32(const float* qkv, float* out, int b, int h, int dh, int t, float scale,
+                           void* stream) {
+  const int d = h * dh;
+  const Strides in{static_cast<long long>(t) * 3 * d, dh, 3 * d, 1};
+  const Strides os{static_cast<long long>(t) * d, dh, d, 1};
+  const bool vec = dh % 4 == 0 && reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return launch(qkv, qkv + d, qkv + 2 * d, out, in, os, b, h, dh, t, scale, vec,
+                static_cast<cudaStream_t>(stream));
 }

@@ -5,7 +5,7 @@ route: encoder (7 convs + max pools) → 7 pre-activation res-CNN blocks → 3
 BiLSTM blocks → 2 transformer blocks with dense additive attention → a
 detection decoder plus P/S pick branches (both pick LSTMs in one merged
 recurrence, width-3 banded attention), each with its own decoder and sigmoid
-head. Every LSTM recurrence goes through ``ops/cuda/lstm.py::lstm_multi``.
+head. Every LSTM recurrence goes through ``ops/cuda/lstm.py::lstm_branches``.
 With the ``fused`` token ``"pattn"`` the transformer blocks' attention goes
 through ``ops/cuda/addattn.py::seq_self_attention`` (see ``resolve_fused``).
 
@@ -37,7 +37,7 @@ from volpick_tpu_torch.models.layers import (
 from volpick_tpu_torch.models.params import Conv, bn, uniform
 from volpick_tpu_torch.models.params import bn_params as _bn_params
 from volpick_tpu_torch.ops.cuda.addattn import seq_self_attention as seq_self_attention_kernel
-from volpick_tpu_torch.ops.cuda.lstm import lstm_multi
+from volpick_tpu_torch.ops.cuda.lstm import lstm_branches
 
 _BN_EPS = 1e-3
 _LN_EPS = 1e-14
@@ -349,12 +349,13 @@ class EQTransformer(nn.Module):
         branch_ins = [h for _ in self.detection_branches]
         if len(self.pick_lstms):
             n = len(self.pick_lstms)
-            px = lstm_multi(
-                h.unsqueeze(0).expand((n,) + h.shape),
+            px = lstm_branches(
+                h,
                 torch.stack([m.weight_ih_l0 for m in self.pick_lstms]),
                 torch.stack([m.weight_hh_l0 for m in self.pick_lstms]),
                 torch.stack([m.bias_ih_l0 + m.bias_hh_l0 for m in self.pick_lstms]),
-            )  # (n, B, 16, T)
+                reverse=(False,) * n,
+            ).chunk(n, dim=1)  # n x (B, 16, T)
             branch_ins += [
                 seq_self_attention_banded(px[i], att.params(), 3, eps=_ATTN_EPS)
                 for i, att in enumerate(self.pick_attentions)

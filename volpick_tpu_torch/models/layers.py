@@ -3,8 +3,8 @@
 Port of ``volpick_tpu/models/layers.py``. Tensors are (B, C, W); conv
 kernels are (O, I, K) and LSTM weights keep torch's (i, f, g, o) gate
 layout, so parameters carry over from the JAX tree unchanged. The merged
-LSTM recurrence runs through ``ops/cuda/lstm.py::lstm_multi`` (a CUDA kernel
-on the card, its plain twin on the CPU).
+LSTM recurrence runs through ``ops/cuda/lstm.py::lstm_branches`` (a CUDA
+kernel on the card, its plain twin on the CPU).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from volpick_tpu_torch.ops.cuda.lstm import lstm_multi
+from volpick_tpu_torch.ops.cuda.lstm import lstm_branches
 
 
 def conv1d(
@@ -124,21 +124,17 @@ def lstm(
     reverse: bool = False,
 ) -> torch.Tensor:
     """One LSTM over (B, C, T) → (B, H, T), optionally scanning time reversed."""
-    xs = (x.flip(-1) if reverse else x)[None]
-    hs = lstm_multi(xs, w_ih[None], w_hh[None], (b_ih + b_hh)[None])[0]
-    return hs.flip(-1) if reverse else hs
+    return lstm_branches(x, w_ih[None], w_hh[None], (b_ih + b_hh)[None], reverse=(reverse,))
 
 
 def bilstm(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Bidirectional LSTM, (B, C, T) → (B, 2H, T): both directions ride one
-    ``lstm_multi`` call (the reverse one scans the time-flipped input and its
-    states are flipped back), forward states first on the channel axis."""
-    xs = torch.stack([x, x.flip(-1)])
+    ``lstm_branches`` call over the same x (the second scans time backward),
+    forward states first on the channel axis."""
     w_ih = torch.stack([p["w_ih"], p["w_ih_rev"]])
     w_hh = torch.stack([p["w_hh"], p["w_hh_rev"]])
-    bias = torch.stack([p["b_ih"] + p["b_hh"], p["b_ih_rev"] + p["b_hh_rev"]])
-    hs = lstm_multi(xs, w_ih, w_hh, bias)
-    return torch.cat([hs[0], hs[1].flip(-1)], dim=1)
+    bias = torch.stack([p["b_ih"], p["b_ih_rev"]]) + torch.stack([p["b_hh"], p["b_hh_rev"]])
+    return lstm_branches(x, w_ih, w_hh, bias, reverse=(False, True))
 
 
 def seq_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor], eps: float = 1e-5) -> torch.Tensor:

@@ -20,6 +20,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from volpick_tpu_torch.device import resolve_device
 from volpick_tpu_torch.models.convert import ARCHS, load_npz_v1
 
 
@@ -53,20 +54,24 @@ def _find(arch: str, name: str, search_paths: Sequence[str]) -> Tuple[str, str, 
     )
 
 
-def load_model(arch: str, seed: int = 0, device="cpu", **model_args) -> torch.nn.Module:
-    """Fresh model with parameters drawn from ``torch.Generator`` seeded `seed`."""
+def load_model(arch: str, seed: int = 0, device=None, **model_args) -> torch.nn.Module:
+    """Fresh model with parameters drawn from ``torch.Generator`` seeded `seed`,
+    on `device`: the card by default (``resolve_device``), ``"cpu"`` on request."""
     _, cls = _arch(arch)
+    device = resolve_device(device, "load_model")
     model = cls(generator=torch.Generator().manual_seed(seed), **model_args)
     return model.to(device).eval()
 
 
 def from_pretrained(
-    arch: str, name: str = "volpick", search_paths: Sequence[str] = (), device="cpu"
+    arch: str, name: str = "volpick", search_paths: Sequence[str] = (), device=None
 ) -> torch.nn.Module:
-    """Model with published or exported weights, loaded with ``strict=True``.
+    """Model with published or exported weights, loaded with ``strict=True``,
+    on `device`: the card by default (``resolve_device``), ``"cpu"`` on request.
 
     ``model.default_args`` carries the shipped thresholds of the ``.json.v1``."""
     arch, cls = _arch(arch)
+    device = resolve_device(device, "from_pretrained")
     js_path, weights_path, kind = _find(arch, name, search_paths)
     if kind == "npz":
         _, model = load_npz_v1(js_path, weights_path)

@@ -12,8 +12,9 @@ writes into a ``.npz.v1``, so native weights map one to one. Dense weights
 are (in, out) and applied as ``y @ w + b``; conv kernels are (O, I, K).
 
 ``attn`` selects the attention: ``"xla"`` is the plain einsum route,
-``"pallas"`` is K7 (``ops/cuda/attention.py::mha``: the CUDA kernel for a
-CUDA tensor, its plain twin for a CPU tensor). The names are the JAX
+``"pallas"`` is K7 (``ops/cuda/attention.py::mha_qkv``: the CUDA kernel for
+a CUDA tensor, its plain twin for a CPU tensor), which reads q, k, v in place
+from the block's (B, T, 3, H, Dh) projection. The names are the JAX
 package's, so its configs and ``VOLPICK_TPN_ATTN`` carry over.
 """
 
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from volpick_tpu_torch.models.layers import conv1d, conv1d_same, upsample2_conv1d_same
 from volpick_tpu_torch.models.params import WB, normal, uniform
-from volpick_tpu_torch.ops.cuda.attention import mha
+from volpick_tpu_torch.ops.cuda.attention import mha_qkv
 
 _LN_EPS = 1e-6
 _ENC_KERNELS = (7, 5, 5, 3, 3)
@@ -150,18 +151,14 @@ class TPUPickNet(nn.Module):
             return self.attn
         return os.environ.get("VOLPICK_TPN_ATTN", "").strip().lower() or "xla"
 
-    def _attention(self, q, k, v, attn: str) -> torch.Tensor:
-        """q, k, v (B, T, H, Dh) → (B, T, H*Dh), scaled by 1/sqrt(Dh)."""
-        b, t, h, dh = q.shape
+    def _attention(self, qkv: torch.Tensor, attn: str) -> torch.Tensor:
+        """The projection qkv (B, T, 3, H, Dh) → (B, T, H*Dh), q scaled by
+        1/sqrt(Dh). Under ``"pallas"`` K7 reads the projection in place."""
+        b, t, _, h, dh = qkv.shape
         scale = 1.0 / math.sqrt(dh)
         if attn == "pallas":
-            # head-major packing (B, H*Dh, T), contiguous for the kernel; the
-            # scale folded into q
-            def pack(a):
-                return a.permute(0, 2, 3, 1).reshape(b, h * dh, t)
-
-            q, k, v = (pack(q) * scale).contiguous(), pack(k).contiguous(), pack(v).contiguous()
-            return mha(q, k, v, h).transpose(1, 2)
+            return mha_qkv(qkv, scale)
+        q, k, v = qkv.unbind(2)
         att = torch.softmax(torch.einsum("bthd,bshd->bhts", q, k) * scale, dim=-1)
         return torch.einsum("bhts,bshd->bthd", att, v).reshape(b, t, h * dh)
 
@@ -182,7 +179,7 @@ class TPUPickNet(nn.Module):
         for blk in self.blocks:
             y = _layer_norm(h, blk.ln1)
             qkv = (y @ blk.qkv.w + blk.qkv.b).reshape(b, t, 3, self.n_heads, d // self.n_heads)
-            y = self._attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], attn)
+            y = self._attention(qkv, attn)
             h = h + y @ blk.proj.w + blk.proj.b
             y = _gelu(_layer_norm(h, blk.ln2) @ blk.mlp1.w + blk.mlp1.b)
             h = h + y @ blk.mlp2.w + blk.mlp2.b

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_functions: dict = {}  # entry point name -> bound function of _lib
 build_log = ""  # compiler output of the last build in this process
 
 
@@ -118,12 +119,16 @@ def library() -> ctypes.CDLL:
 
 
 def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """A C entry point of the library with its argument types declared.
+    """A C entry point of the library with its argument types declared (once;
+    later calls return the same object).
 
     Pointers and the stream must be declared ``ctypes.c_void_p``, or ctypes
     passes them as 32-bit ints. Every entry point returns the launch's
     ``cudaGetLastError()`` as an int."""
-    fn = getattr(library(), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn

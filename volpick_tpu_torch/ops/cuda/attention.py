@@ -1,14 +1,21 @@
 """Softmax multi-head self-attention: the CUDA kernel ``csrc/mha.cu`` and its
-plain PyTorch twin.
+plain PyTorch twins.
 
-Port of ``volpick_tpu/ops/pallas/attention.py::mha_pallas``: q, k, v are
-(B, H·Dh, T) float32, packed head-major, with any query scaling already
-folded into q. Per window b and head h the output is
-``softmax_s(q_hᵀ k_h) v_h``: the row max is subtracted, and the exponentials
-are divided by their plain sum (no eps). The output has the shape of q.
+Port of ``volpick_tpu/ops/pallas/attention.py::mha_pallas``, in two layouts
+served by one kernel body:
 
-``mha`` takes the twin for a CPU tensor and the kernel for a CUDA tensor;
-there is no other route.
+- ``mha(q, k, v, n_heads)`` keeps the JAX package's contract: q, k, v are
+  (B, H·Dh, T) float32, packed head-major, with any query scaling already
+  folded into q; the output has the shape of q.
+- ``mha_qkv(qkv, scale)`` reads q, k, v in place from a model's projection
+  (B, T, 3, H, Dh), multiplies ``scale`` into q inside the kernel (the same
+  single float32 multiply as ``q * scale``) and returns (B, T, H·Dh): no
+  packing copy, no scale pass and no transpose around the launch.
+
+Per window b and head h the output is ``softmax_s(q_hᵀ k_h) v_h``: the row
+max is subtracted, and the exponentials are divided by their plain sum (no
+eps). Each entry takes its twin for a CPU tensor and the kernel for a CUDA
+tensor; there is no other route.
 """
 
 from __future__ import annotations
@@ -19,11 +26,11 @@ import torch
 
 from volpick_tpu_torch.ops.cuda import _build
 
-MAX_HEAD_DIM = 32  # one lane per output channel of a head
-MAX_TOKENS = 128  # four scores per lane in registers
-MAX_SHARED_BYTES = 48 * 1024  # q, k, v of one head, no opt-in shared memory
+MAX_HEAD_DIM = 32  # eight float4 channel groups a head in the PV product
+MAX_TOKENS = 128  # four scores per lane in the softmax
+MAX_SHARED_BYTES = 227 * 1024  # what a block may opt in to on sm_90
 
-launches = 0  # kernel launches made by mha on CUDA tensors
+launches = 0  # kernel launches made by mha and mha_qkv on CUDA tensors
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -36,10 +43,35 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: in
     return torch.einsum("bhts,bhds->bhdt", p, vh).reshape(b, d, t)
 
 
-def _padded_row(t: int) -> int:
-    """Shared-memory row stride of the kernel: odd, so the 32 lanes of a warp
-    reading one column of a (Dh, T) tile hit 32 different banks."""
-    return t | 1
+def mha_qkv_reference(qkv: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain PyTorch twin of ``mha_qkv``, on any device."""
+    b, t, _, h, dh = qkv.shape
+    q, k, v = qkv.unbind(2)
+    s = torch.einsum("bthd,bshd->bhts", q * scale, k)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhts,bshd->bthd", p, v).reshape(b, t, h * dh)
+
+
+def shared_bytes(dh: int, t: int) -> int:
+    """Dynamic shared memory of one CTA (mirrors ``launch`` in csrc/mha.cu):
+    q, k, v as (8·ceil(T/8), DP) tiles, DP = Dh rounded up to a multiple of 4
+    whose quarter is odd, and the (T, T) scores with 4 floats of row padding."""
+    tp = -(-t // 8) * 8
+    d4 = -(-dh // 4) * 4
+    dp = d4 if (d4 // 4) % 2 else d4 + 4
+    return (3 * tp * dp + tp * (-(-t // 4) * 4 + 4)) * 4
+
+
+def _check_limits(dh: int, t: int) -> None:
+    if dh > MAX_HEAD_DIM or t > MAX_TOKENS:
+        raise ValueError(
+            f"head dim {dh} / tokens {t} exceed the kernel's limits {MAX_HEAD_DIM} / {MAX_TOKENS}"
+        )
+    if shared_bytes(dh, t) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"one head needs {shared_bytes(dh, t)} B of shared memory, above {MAX_SHARED_BYTES}"
+        )
 
 
 def _check(q, k, v, n_heads: int) -> None:
@@ -66,14 +98,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torc
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cpu or cuda, got {q.device}")
     b, d, t = q.shape
-    dh = d // n_heads
-    if dh > MAX_HEAD_DIM or t > MAX_TOKENS:
-        raise ValueError(
-            f"head dim {dh} / tokens {t} exceed the kernel's limits {MAX_HEAD_DIM} / {MAX_TOKENS}"
-        )
-    smem = 3 * dh * _padded_row(t) * 4
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"one head needs {smem} B of shared memory, above {MAX_SHARED_BYTES}")
+    _check_limits(d // n_heads, t)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -82,10 +107,43 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torc
         return out
     fn = _build.function("mha_f32", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n_heads, dh, t,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n_heads, d // n_heads, t,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"mha_f32 launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def mha_qkv(qkv: torch.Tensor, scale: float) -> torch.Tensor:
+    """Per-head softmax attention read in place from a (B, T, 3, H, Dh)
+    projection, q scaled by `scale`; returns (B, T, H·Dh)."""
+    global launches
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be (B, T, 3, H, Dh), got {tuple(qkv.shape)}")
+    if qkv.dtype != torch.float32:
+        raise TypeError(f"qkv must be float32, got {qkv.dtype}")
+    if qkv.device.type == "cpu":
+        return mha_qkv_reference(qkv, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"mha_qkv runs on cpu or cuda, got {qkv.device}")
+    b, t, _, h, dh = qkv.shape
+    _check_limits(dh, t)
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    out = torch.empty((b, t, h * dh), dtype=torch.float32, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.function(
+        "mha_qkv_f32",
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    err = fn(
+        qkv.data_ptr(), out.data_ptr(), b, h, dh, t, float(scale),
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mha_qkv_f32 launch failed: cudaError {err}")
     launches += 1
     return out

@@ -3,7 +3,7 @@
 Port of ``volpick_tpu/picker/annotate.py`` (the SeisBench WaveformModel
 surface the reference documents):
 
-    picker = WaveformPicker(load_model("eqtransformer"), device="cuda")
+    picker = WaveformPicker(load_model("eqtransformer"))  # on the card; device="cpu" for the CPU
     output = picker.classify(stream, overlap=5500, blinding=(500, 500), batch_size=256)
 
 The model is any of the registry's: EQTransformer, VolEQTransformer (two
@@ -37,6 +37,7 @@ import torch
 
 from volpick_tpu_torch.core.picks import ClassifyOutput, Detection, Pick, PickList
 from volpick_tpu_torch.core.stream import Stream, Trace, UTC, group_streams_by_instrument
+from volpick_tpu_torch.device import resolve_device
 from volpick_tpu_torch.ops.cuda.conditioning import condition_windows
 from volpick_tpu_torch.ops.signal import (
     condition_windows_from_span,
@@ -60,21 +61,17 @@ __all__ = ["WaveformPicker", "Stream", "Trace", "UTC"]
 class WaveformPicker:
     """Batched continuous picking with a model on one device.
 
-    ``device`` is "cpu" or a CUDA device; asking for CUDA where none is
-    available raises instead of running on the CPU. The model is moved to
-    the device and put in eval mode. ``use_pallas=True`` (the JAX picker's
+    ``device`` is a CUDA device or "cpu"; ``None`` (the default) is "cuda".
+    CUDA that is not available raises instead of running on the CPU: pass
+    ``device="cpu"`` to ask for the CPU. The model is moved to the device
+    and put in eval mode. ``use_pallas=True`` (the JAX picker's
     name for the switch) conditions framed windows with the kernel of
     ``ops/cuda/conditioning.py`` instead of conditioning each step's span."""
 
     def __init__(
-        self, model, device="cpu", detrend: Optional[bool] = None, use_pallas: bool = False
+        self, model, device=None, detrend: Optional[bool] = None, use_pallas: bool = False
     ):
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(f"WaveformPicker(device={str(device)!r}): CUDA is not available")
-        elif device.type != "cpu":
-            raise ValueError(f"device must be cpu or cuda, got {device}")
+        device = resolve_device(device, "WaveformPicker")
         self.device = device
         self.model = model.to(device).eval()
         # EQT conditions windows by detrend, PhaseNet by demean (reference
