@@ -15,10 +15,21 @@
    latter also against the stacked and flipped lstm_multi it replaces, with
    the whole call's time by CUDA events and, from torch.profiler, its summed
    kernel time and the recurrence kernel's alone; K3 trigger_scan at
-   (24, 120000), exactly equal in all three outputs; K4 condition_windows at
-   (232, 3, 6000) over detrend x norm within 2e-5; K5 addattn at x
-   (232, 16, 47), q / k (232, 47, 32) within 1e-5, at the model's scale and
-   at one that saturates tanh; K7 at (128, 128, 94), 4 heads (TPUPickNet's
+   (24, 120000), with runs across every step and piece boundary of its split
+   of a row over warps, a run longer than two pieces and a row whose first
+   run starts in its second piece, and at (3000, 6000), many short rows of
+   one piece each:
+   exactly equal in all three outputs, timed by CUDA events and by its
+   kernels' rows in torch.profiler, each shape beside its own bound; K4
+   condition_windows at (232, 3, 6000) over detrend x norm within 2e-5; K5 at
+   x (232, 16, 47), U = 32 within 1e-5 in both entries: addattn (q / k
+   (232, 47, 32) projected by the caller) and addattn_x (projects inside,
+   the entry the model calls), the latter also against the former fed
+   PyTorch's projections, at the model's scale and at one that saturates
+   tanh, kernel and twin also against a float64 evaluation (the kernel no
+   worse than 1e-5 there either), timed by the kernel's row in torch.profiler
+   (a launch is shorter than its Python wrapper) with the CUDA-event time
+   beside it; K7 at (128, 128, 94), 4 heads (TPUPickNet's
    batch-128 step) within 1e-5 in both entries: mha (head-major) and mha_qkv
    (in place on the (128, 94, 3, 4, 32) projection, the entry the model
    calls), the latter also against the former on the same data; K6
@@ -79,6 +90,7 @@ import torch
 import torch.nn.functional as F
 
 TRIG_ROWS, TRIG_W, TRIG_K = 24, 120_000, 80
+SHORT_ROWS, SHORT_W = 3000, 6000  # many short rows, as an evaluation sweep hands them to K3
 LSTM_G, LSTM_B, LSTM_H, LSTM_T = 2, 232, 16, 47
 MHA_B, MHA_D, MHA_T, MHA_H = 128, 128, 94, 4
 COND_N, COND_C, COND_W = 232, 3, 6000
@@ -132,17 +144,34 @@ def conditioning_rows(rng, n, c, w) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def trigger_curves(rng) -> np.ndarray:
-    """(24, 120000) curves: runs across every thread-segment boundary of the
-    kernel, a run touching the row end, rows with far more than K runs, a
+def trigger_curves(rng, step: int, piece: int):
+    """(24, 120000) curves and the number of constructed rows among them
+    (thresholds 0.5 / 0.25 there): runs across every thread-segment boundary of K1
+    and across every step and piece boundary of K3 (`step` samples a warp
+    scans at a time, `piece` samples a warp), a run longer than two pieces
+    whose max sits in its first, a row whose first run starts in its second
+    piece, a run touching the row end, rows with far more than K runs, a
     dense alternating row, a row that never triggers, plateaus, and smoothed
     noise rows like real probability curves."""
     w = TRIG_W
-    seg = -(-w // 1024)  # samples per thread in the kernel
+    seg = -(-w // 1024)  # samples per thread in K1
     rows = []
     r = np.full(w, 0.1, np.float32)
     for b in range(seg, w, seg):
         r[b - 3 : b + 2] = 0.9
+    rows.append(r)
+    r = np.full(w, 0.1, np.float32)
+    for b in range(step, w, step):  # K3: a piece is a whole number of steps
+        r[b - 3 : b + 2] = 0.9 if b % piece else 0.95
+    rows.append(r)
+    r = np.full(w, 0.1, np.float32)
+    r[piece - 100 : 3 * piece + 300] = 0.4  # crosses t1 only at its peak, in the first piece
+    r[piece - 40] = 0.97
+    r[3 * piece + 900 : 3 * piece + 905] = 0.9
+    rows.append(r)
+    r = np.full(w, 0.1, np.float32)
+    r[piece + 5 : piece + 50] = np.linspace(0.3, 0.9, 45)
+    r[5 * piece - 2 : 5 * piece + 2] = 0.8
     rows.append(r)
     r = np.full(w, 0.1, np.float32)
     r[w - 500 :] = np.linspace(0.3, 0.95, 500)
@@ -156,11 +185,12 @@ def trigger_curves(rng) -> np.ndarray:
     r[:5] = [0.9, 0.9, 0.6, 0.9, 0.3]
     r[60_000:60_009] = [0.3, 0.6, 0.7, 0.7, 0.7, 0.4, 0.26, 0.6, 0.2]
     rows.append(r)
+    n_fixed = len(rows)
     while len(rows) < TRIG_ROWS:
         width = int(rng.integers(5, 400))
         x = np.convolve(rng.random(w), np.ones(width) / width, mode="same")
         rows.append(((x - x.min()) / (x.max() - x.min() + 1e-9)).astype(np.float32))
-    return np.stack(rows)
+    return np.stack(rows), n_fixed
 
 
 def classify_seconds(picker, data, thresholds, kw) -> float:
@@ -180,6 +210,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from volpick_tpu_torch.models import eqtransformer as port_eqt
     from volpick_tpu_torch.models import load_model
     from volpick_tpu_torch.ops.cuda import _build
     from volpick_tpu_torch.ops.cuda import addattn as cuda_addattn
@@ -215,9 +246,12 @@ def main() -> None:
 
     # ---- 3. kernels vs twins at the main paths' shapes
     rng = np.random.default_rng(0)
-    prob = torch.as_tensor(trigger_curves(rng), device=dev)
+    scan_piece, scan_pieces = cuda_trig.scan_plan(TRIG_ROWS, TRIG_W)
+    curves_np, n_fixed = trigger_curves(rng, cuda_trig.SCAN_STEP, scan_piece)
+    prob = torch.as_tensor(curves_np, device=dev)
     t1 = torch.full((TRIG_ROWS,), 0.5, device=dev)
-    t1[6:] = torch.as_tensor(rng.uniform(0.3, 0.8, TRIG_ROWS - 6).astype(np.float32), device=dev)
+    t1[n_fixed:] = torch.as_tensor(
+        rng.uniform(0.3, 0.8, TRIG_ROWS - n_fixed).astype(np.float32), device=dev)
     t2 = t1 / 2.0
     got = cuda_trig.trigger_extract(prob, t1, t2, TRIG_K)
     want = cuda_trig.trigger_extract_reference(prob, t1, t2, TRIG_K)
@@ -237,26 +271,64 @@ def main() -> None:
     print(f"K1 time on {card}: kernel {trig_ms:.4f} ms, twin {trig_plain_ms:.4f} ms, bound "
           f"{trig_bound[0]:.4f} ms ({trig_bound[1]}), no library call computes it")
 
-    # K3: the same curves, the scanned state at every position
-    scan_got = cuda_trig.trigger_scan(prob, t1, t2)
-    scan_want = cuda_trig.trigger_scan_reference(prob, t1, t2)
-    torch.cuda.synchronize()
-    scan_err = 0.0
-    for field, g, w in zip(("onset", "max", "argmax"), scan_got, scan_want):
-        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
-            fail(f"trigger_scan {field} differs from its twin")
-        scan_err = max(scan_err, float((g.double() - w.double()).abs().max()))
-    for method in ("pallas", "shift"):
+    # K3: the same curves, the scanned state at every position; then many
+    # short rows, one piece each
+    def scan_equal(p, a, b_, what):
+        got_s = cuda_trig.trigger_scan(p, a, b_)
+        want_s = cuda_trig.trigger_scan_reference(p, a, b_)
+        torch.cuda.synchronize()
+        err = 0.0
+        for field, g, w in zip(("onset", "max", "argmax"), got_s, want_s):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                fail(f"trigger_scan {what} {field} differs from its twin")
+            err = max(err, float((g.double() - w.double()).abs().max()))
+        return got_s, err
+
+    def scan_times(p, a, b_):
+        """(ms by CUDA events, summed ms of its kernels' profiler rows a call, launches a call)"""
+        ev = cuda_ms(lambda: cuda_trig.trigger_scan(p, a, b_))
+        _, _, events = profiled(lambda: [cuda_trig.trigger_scan(p, a, b_) for _ in range(10)])
+        rows_ = [e for e in events if "trigger_scan_kernel" in e.key]
+        return ev, sum(self_device_us(e) for e in rows_) / 1e4, sum(e.count for e in rows_) / 10
+
+    scan_got, scan_err = scan_equal(prob, t1, t2, f"({TRIG_ROWS}, {TRIG_W})")
+    for method in ("pallas", "shift", "blocked"):
         for g, w in zip(extract_triggers_batched(prob, t1, t2, TRIG_K, method=method), got):
             if not torch.equal(g, w):
                 fail(f'method="{method}" picks differ from "pallas_full"')
-    scan_ms = cuda_ms(lambda: cuda_trig.trigger_scan(prob, t1, t2))
+    scan_ms, scan_kernel_ms, scan_n = scan_times(prob, t1, t2)
     scan_plain_ms = cuda_ms(lambda: cuda_trig.trigger_scan_reference(prob, t1, t2), iters=5)
+    # what follows the kernel under method="pallas": the emission in plain PyTorch
+    emit_ms = cuda_ms(lambda: cuda_trig.emit_picks(prob, t2, scan_got, TRIG_K))
     scan_bound = bound(nbytes(prob, t1, t2, *scan_got), flops=8 * prob.numel())
-    print(f"K3 trigger_scan ({TRIG_ROWS}, {TRIG_W}): equal to twin in all three outputs; "
-          f'methods "pallas" and "shift" give the picks of "pallas_full"; time on {card}: kernel '
-          f"{scan_ms:.4f} ms, twin {scan_plain_ms:.4f} ms, bound {scan_bound[0]:.4f} ms "
-          f"({scan_bound[1]}), no library call computes it")
+    if scan_pieces * TRIG_ROWS <= 8 * TRIG_ROWS or scan_n != 2:
+        fail(f"trigger_scan ({TRIG_ROWS}, {TRIG_W}): {scan_pieces} pieces a row, {scan_n} launches a call")
+    print(f"K3 trigger_scan ({TRIG_ROWS}, {TRIG_W}), {scan_pieces} pieces of {scan_piece} a row = "
+          f"{scan_pieces * TRIG_ROWS} warps in {-(-scan_pieces * TRIG_ROWS // 8)} CTAs, {scan_n:.0f} "
+          f"launches a call: equal to twin in all three "
+          f'outputs; methods "pallas", "shift" and "blocked" give the picks of "pallas_full"; time '
+          f"on {card}: {scan_ms:.4f} ms by CUDA events, {scan_kernel_ms:.4f} ms of summed kernel "
+          f"time under torch.profiler, twin {scan_plain_ms:.4f} ms, bound {scan_bound[0]:.4f} ms "
+          f"({scan_bound[1]}), no library call computes it; the PyTorch emission after it "
+          f"(emit_picks, K={TRIG_K}) {emit_ms:.4f} ms by CUDA events")
+    short = torch.as_tensor(rng.random((1, SHORT_ROWS, SHORT_W), dtype=np.float32), device=dev)
+    short = F.avg_pool1d(short, 25, stride=1, padding=12)[0]
+    short = (short - short.amin(1, keepdim=True)) / (short.amax(1, keepdim=True) - short.amin(1, keepdim=True))
+    short[7] = 0.95  # a row that is all one run
+    short[8] = 0.0
+    short = short.contiguous()
+    st1 = torch.as_tensor(rng.uniform(0.3, 0.8, SHORT_ROWS).astype(np.float32), device=dev)
+    st2 = st1 / 2.0
+    short_got, _ = scan_equal(short, st1, st2, f"({SHORT_ROWS}, {SHORT_W})")
+    short_ms, short_kernel_ms, short_n = scan_times(short, st1, st2)
+    short_plain_ms = cuda_ms(lambda: cuda_trig.trigger_scan_reference(short, st1, st2), iters=3)
+    short_bound = bound(nbytes(short, st1, st2, *short_got), flops=8 * short.numel())
+    print(f"K3 trigger_scan ({SHORT_ROWS}, {SHORT_W}), {cuda_trig.scan_plan(SHORT_ROWS, SHORT_W)[1]} "
+          f"piece a row, {short_n:.0f} launch a call: equal to twin in all three outputs; time on "
+          f"{card}: {short_ms:.4f} ms by CUDA events, {short_kernel_ms:.4f} ms of kernel time under "
+          f"torch.profiler, twin {short_plain_ms:.4f} ms, bound {short_bound[0]:.4f} ms "
+          f"({short_bound[1]})")
+    del short, short_got
 
     # K4: rows with an offset and a trend far larger than the signal
     xc = torch.as_tensor(conditioning_rows(rng, COND_N, COND_C, COND_W), device=dev)
@@ -396,28 +468,64 @@ def main() -> None:
           f"{float((sdpa - qkv_out).abs().max()):.3e}), on contiguous (B, H, T, Dh) operands "
           f"{mha_lib_packed_ms:.4f} ms; time on {card}")
 
-    # K5: q and k as the model's projections scale them, then saturating tanh
+    # K5: q and k at the scale of the model's projections, then saturating
+    # tanh; both entries. addattn_x gets weights that give its q and k that scale
     xa = torch.as_tensor(rng.normal(size=(ATT_B, ATT_C, ATT_T)).astype(np.float32), device=dev)
     wa = torch.as_tensor(rng.uniform(-0.3, 0.3, ATT_U).astype(np.float32), device=dev)
-    att_err = 0.0
+    xat = xa.transpose(1, 2)
+    att_err = att_f64 = 0.0
+    att = {}
     for scale in (0.5, 20.0):
         qa, ka = (torch.as_tensor((rng.normal(size=(ATT_B, ATT_T, ATT_U)) * scale).astype(np.float32),
                                   device=dev) for _ in range(2))
-        err = float((cuda_addattn.addattn(xa, qa, ka, wa)
-                     - cuda_addattn.addattn_reference(xa, qa, ka, wa)).abs().max())
-        print(f"K5 addattn x ({ATT_B}, {ATT_C}, {ATT_T}) q/k ({ATT_B}, {ATT_T}, {ATT_U}) at scale "
-              f"{scale}: max abs err {err:.3e} (tol {ATT_TOL})")
+        wt, wx = (torch.as_tensor((rng.normal(size=(ATT_C, ATT_U)) * scale / ATT_C ** 0.5)
+                                  .astype(np.float32), device=dev) for _ in range(2))
+        bh = torch.as_tensor((rng.normal(size=ATT_U) * 0.1 * scale).astype(np.float32), device=dev)
+        calls = {  # entry -> (kernel call, twin call, float64 evaluation)
+            "addattn": (lambda: cuda_addattn.addattn(xa, qa, ka, wa),
+                        lambda: cuda_addattn.addattn_reference(xa, qa, ka, wa),
+                        cuda_addattn.addattn_reference(xa.double(), qa.double(), ka.double(), wa.double())),
+            "addattn_x": (lambda: cuda_addattn.addattn_x(xa, wt, bh, wx, wa),
+                          lambda: cuda_addattn.addattn_x_reference(xa, wt, bh, wx, wa),
+                          cuda_addattn.addattn_x_reference(xa.double(), wt.double(), bh.double(),
+                                                           wx.double(), wa.double())),
+        }
+        for entry_name, (call, twin_call, f64) in calls.items():
+            got_a, twin = call(), twin_call()
+            torch.cuda.synchronize()
+            err = float((got_a - twin).abs().max())
+            k64, t64 = float((got_a - f64).abs().max()), float((twin - f64).abs().max())
+            print(f"K5 {entry_name} x ({ATT_B}, {ATT_C}, {ATT_T}), U {ATT_U}, at scale {scale}: max abs "
+                  f"err {err:.3e} vs twin (tol {ATT_TOL}); vs float64: kernel {k64:.3e}, twin {t64:.3e}")
+            if not (max(err, k64) <= ATT_TOL and bool(torch.isfinite(got_a).all())):
+                fail(f"{entry_name} at scale {scale}: max abs err {err} vs twin, {k64} vs float64 "
+                     f"> {ATT_TOL}, or not finite")
+            att_err, att_f64 = max(att_err, err), max(att_f64, k64)
+            if scale == 0.5:
+                _, _, events = profiled(lambda: [call() for _ in range(10)])
+                att[entry_name] = (
+                    sum(self_device_us(e) for e in events if "addattn_kernel" in e.key) / 1e4,
+                    cuda_ms(call), cuda_ms(twin_call))
+        # the entry that projects inside against the other one fed PyTorch's projections
+        err = float((cuda_addattn.addattn_x(xa, wt, bh, wx, wa) - cuda_addattn.addattn(
+            xa, (xat @ wt + bh).contiguous(), (xat @ wx).contiguous(), wa)).abs().max())
+        print(f"K5 addattn_x vs addattn fed PyTorch's projections at scale {scale}: max abs diff "
+              f"{err:.3e} (tol {ATT_TOL})")
         if not err <= ATT_TOL:
-            fail(f"addattn at scale {scale} max abs err {err} > {ATT_TOL}")
+            fail(f"addattn_x differs from addattn on PyTorch's projections by {err} at scale {scale}")
         att_err = max(att_err, err)
-        if scale == 0.5:
-            att_ms = cuda_ms(lambda: cuda_addattn.addattn(xa, qa, ka, wa))
-            att_plain_ms = cuda_ms(lambda: cuda_addattn.addattn_reference(xa, qa, ka, wa))
     n_pair = ATT_B * ATT_T * ATT_T
-    att_bound = bound(nbytes(xa, qa, ka, wa, xa), flops=n_pair * (3 * ATT_U + 2 * ATT_C + 4),
-                      sfu=n_pair * (ATT_U + 1))
-    print(f"K5 time on {card}: kernel {att_ms:.4f} ms, twin {att_plain_ms:.4f} ms, bound "
-          f"{att_bound[0]:.4f} ms ({att_bound[1]}), no library call computes it")
+    att_ops = dict(flops=n_pair * (3 * ATT_U + 2 * ATT_C + 4), sfu=n_pair * (ATT_U + 1))
+    att_bound_xqk = bound(nbytes(xa, qa, ka, wa, xa), **att_ops)
+    att_bound = bound(nbytes(xa, wt, bh, wx, wa, xa),
+                      flops=att_ops["flops"] + 4 * ATT_B * ATT_T * ATT_C * ATT_U, sfu=att_ops["sfu"])
+    for entry_name, bnd in (("addattn_x", att_bound), ("addattn", att_bound_xqk)):
+        k_ms, e_ms, p_ms = att[entry_name]
+        print(f"K5 {entry_name} time on {card}: kernel {k_ms:.4f} ms (its row under torch.profiler), "
+              f"{e_ms:.4f} ms by CUDA events (the host's pace), twin {p_ms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}; one special-function operation a tanh; this kernel's "
+              f"tanh takes two: {2 * att_ops['sfu'] / PEAK_SFU * 1e3:.4f} ms), no library call "
+              "computes it")
 
     # ---- 4-6. every picker at full width on the bench stream
     data = bench_stream_array(seed=0)
@@ -444,6 +552,7 @@ def main() -> None:
         return {kn: getattr(mod, attr) for kn, (mod, attr) in counters.items()}
 
     by_path, rates, thresholds_of, device_of, curves_of, optin_kernel_ms = {}, {}, {}, {}, {}, {}
+    optin_launches = {}  # attention route -> (aten:: calls, kernel launches) of one classify_arrays
     ops_of = {}
     for label, arch, margs, pkw, env, overlap, blinding, batch in PATHS:
         saved_env = {k_: os.environ.get(k_) for k_ in env}
@@ -522,6 +631,29 @@ def main() -> None:
             for kn in ("addattn_kernel", "condition_kernel", "trigger_scan_kernel"):
                 if not own[kn] > 0:
                     fail(f"{label}: the profiler saw no {kn}")
+            # the same call with the attention block in its earlier composition:
+            # projections by PyTorch, then the entry that takes q and k
+            def composed(x_, p_, eps=1e-5):
+                xt_ = x_.transpose(1, 2)
+                return cuda_addattn.addattn(
+                    x_.contiguous(), (xt_ @ p_["Wt"] + p_["bh"]).contiguous(),
+                    (xt_ @ p_["Wx"]).contiguous(), p_["Wa"].reshape(-1).contiguous(), eps)
+
+            in_place = port_eqt.seq_self_attention_kernel
+            port_eqt.seq_self_attention_kernel = composed
+            _, composed_ms, composed_events = profiled(
+                lambda: picker.classify_arrays(data, thresholds, **kw))
+            port_eqt.seq_self_attention_kernel = in_place
+            for what, evs, ms_ in (("addattn_x", events, dev_ms),
+                                   ("matmuls + add + addattn", composed_events, composed_ms)):
+                optin_launches[what] = (
+                    sum(e.count for e in evs if e.key.startswith("aten::")),
+                    sum(e.count for e in evs if str(e.device_type).endswith("CUDA")))
+                print(f"{label}: one classify_arrays, attention blocks through {what}: "
+                      f"{optin_launches[what][0]} aten:: calls, {optin_launches[what][1]} kernel "
+                      f"launches, summed kernel time {ms_:.2f} ms")
+            if not all(a < b_ for a, b_ in zip(*optin_launches.values())):
+                fail(f"{label}: addattn_x does not save launches: {optin_launches}")
             # same weights as the default EQTransformer path: same curves
             route_err = float(np.abs(curves - curves_of["eqtransformer"]).max())
             print(f"{label}: max abs curve diff to the default eqtransformer path "
@@ -678,13 +810,24 @@ def main() -> None:
               bound_by_c16=lstm_bound[16][1], library_ms_c16=lstm_lib_ms[16][1],
               event_ms_c16=lstm_ms[16][0], library_event_ms_c16=lstm_lib_ms[16][0],
               kernel_only_ms_c16=lstm_ms[16][2], multi_event_ms_c16=lstm_ms[16][3]),
+        # ms by CUDA events around whole calls (two launches each); kernel_ms the
+        # summed profiler rows of its kernels; *_short_rows at (3000, 6000)
         entry("trigger_scan", "trigger_scan.cu", "triggers.py:329", OPTIN, scan_err, scan_ms,
-              scan_plain_ms, scan_bound),
+              scan_plain_ms, scan_bound, kernel_ms=scan_kernel_ms, emit_ms=emit_ms,
+              ms_short_rows=short_ms,
+              kernel_ms_short_rows=short_kernel_ms, plain_ms_short_rows=short_plain_ms,
+              bound_ms_short_rows=short_bound[0], bound_by_short_rows=short_bound[1]),
         # detrend + peak, EQTransformer's conditioning
         entry("conditioning", "conditioning.cu", "conditioning.py:50", OPTIN, cond_err,
               cond_ms[True, "peak"], cond_plain_ms[True, "peak"], cond_bound),
-        entry("addattn", "addattn.cu", "addattn.py:52", OPTIN, att_err, att_ms, att_plain_ms,
-              att_bound),
+        # addattn_x, the entry the model calls; *_xqk is addattn, fed q and k.
+        # ms: the kernel's row under the profiler; event_ms: CUDA events around
+        # back-to-back calls, which read the host's pace
+        entry("addattn", "addattn.cu", "addattn.py:52", OPTIN, att_err, att["addattn_x"][0],
+              att["addattn_x"][2], att_bound, event_ms=att["addattn_x"][1],
+              max_abs_err_f64=att_f64, ms_xqk=att["addattn"][0], event_ms_xqk=att["addattn"][1],
+              plain_ms_xqk=att["addattn"][2], bound_ms_xqk=att_bound_xqk[0],
+              bound_by_xqk=att_bound_xqk[1]),
         # wired into no forward (as in the JAX package): launches are those of phase 4b
         entry("rescnn", "rescnn.cu", "rescnn.py:112", "eqtransformer/res_cnn section",
               max(res_err, res_twin_err), res_ms, res_plain_ms, res_bound, modules_ms=res_mod_ms),
@@ -692,7 +835,7 @@ def main() -> None:
         entry("mha", "mha.cu", "attention.py:55", "tpupicknet/pallas", mha_err, mha_ms,
               mha_plain_ms, mha_bound, mha_lib_ms, ms_head_major=mha_hm_ms,
               plain_ms_head_major=mha_hm_plain_ms, library_ms_contiguous=mha_lib_packed_ms),
-    ], "launches_by_path": by_path}))
+    ], "launches_by_path": by_path, "optin_classify_launches": optin_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

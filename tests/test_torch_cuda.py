@@ -4,16 +4,19 @@ Marked ``cuda``; every test skips when torch sees no CUDA device (decided in
 a fixture, not at import). Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``. Tolerances:
 trigger extraction and trigger scan exact; LSTM (both forms), MHA (both
-entries) and additive attention 1e-5 (the tests/test_pallas.py pins); conditioning 2e-5; the res-CNN stack
+entries) and additive attention (both entries) 1e-5 (the tests/test_pallas.py pins); conditioning 2e-5; the res-CNN stack
 3e-4; picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another
 order on the card).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
 from volpick_tpu_torch.models import load_model
+from volpick_tpu_torch.ops.cuda import _build
 from volpick_tpu_torch.ops.cuda import addattn as cuda_addattn
 from volpick_tpu_torch.ops.cuda import attention as cuda_attn
 from volpick_tpu_torch.ops.cuda import conditioning as cuda_cond
@@ -42,6 +45,12 @@ def _curves(rng, b, w):
     r[max(w - 3, 0):] = 0.7
     for s in range(seg, w, seg):
         r[max(s - 2, 0) : s + 1] = 0.9
+    rows.append(r)
+    # runs across every step boundary (128 samples) of trigger_scan, and so
+    # across every boundary between the pieces of its warps
+    r = np.full(w, 0.1)
+    for s in range(cuda_trig.SCAN_STEP, w, cuda_trig.SCAN_STEP):
+        r[s - 2 : s + 2] = 0.9 if s % (6 * cuda_trig.SCAN_STEP) else 0.95
     rows.append(r)
     while len(rows) < b:
         k = int(rng.integers(1, min(60, w) + 1))
@@ -244,25 +253,72 @@ def test_tpupicknet_pallas_picker_gpu_matches_cpu(dev):
 
 
 # ---- trigger_scan (K3)
-@pytest.mark.parametrize("b,w", [(4, 1), (5, 7), (8, 1023), (8, 1025), (9, 5000), (24, 120000)])
-def test_trigger_scan_equals_twin(dev, b, w):
-    rng = np.random.default_rng(w)
-    curves = _curves(rng, b, w)
-    curves[-1] = 0.95  # a row that is all one run
-    prob = torch.as_tensor(curves, device=dev)
-    t1 = torch.as_tensor(rng.uniform(0.3, 0.8, b).astype(np.float32), device=dev)
-    t2 = t1 * 0.5
+def _assert_scan_equals_twin(prob, t1, t2):
     before = cuda_trig.scan_launches
     got = cuda_trig.trigger_scan(prob, t1, t2)
-    assert cuda_trig.scan_launches == before + 1
+    assert cuda_trig.scan_launches == before + 1  # one a call, however many kernels it launches
     want = cuda_trig.trigger_scan_reference(prob, t1, t2)
     for g, r in zip(got, want):
         assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+# W = 1, 3: one ragged quad; odd W with B > 1: rows that start off a 16-byte
+# boundary; 4097, 12289: one sample past a step; B = 1: 938 pieces of one step,
+# far more summaries than a warp; (100, 30001): 22 pieces a row; B = 3000 and
+# 5000: one piece a row, one launch
+@pytest.mark.parametrize("b,w", [(4, 1), (5, 3), (5, 7), (8, 1023), (8, 1025), (9, 4097), (9, 5000),
+                                 (7, 12289), (24, 120000), (1, 120000), (100, 30001), (3000, 6000),
+                                 (3000, 37), (5000, 1501)])
+def test_trigger_scan_equals_twin(dev, b, w):
+    rng = np.random.default_rng(w)
+    curves = _curves(rng, b, w)
+    curves[-1] = 0.95  # a row that is all one run: longer than any piece
+    prob = torch.as_tensor(curves, device=dev)
+    t1 = torch.as_tensor(rng.uniform(0.3, 0.8, b).astype(np.float32), device=dev)
+    t2 = t1 * 0.5
+    _assert_scan_equals_twin(prob, t1, t2)
     k = 16
     full = extract_triggers_batched(prob, t1, t2, max_picks=k, method="pallas_full")
-    for method in ("pallas", "shift"):
+    for method in ("pallas", "shift", "blocked"):
         for g, r in zip(extract_triggers_batched(prob, t1, t2, max_picks=k, method=method), full):
             assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("b,w", [(24, 120000), (6, 30001)])
+def test_trigger_scan_piece_boundaries(dev, b, w):
+    """Runs across every piece boundary of the kernel's split, a run longer
+    than two pieces whose max sits in its first, a row whose first run starts
+    in its second piece, a run touching the row end, a row that never triggers."""
+    piece, n_pieces = cuda_trig.scan_plan(b, w)
+    assert n_pieces > 4
+    prob = np.full((b, w), 0.1, np.float32)
+    for c in range(piece, w, piece):
+        prob[0, c - 2 : c + 3] = 0.9
+    prob[1, piece - 50 : min(w, 3 * piece + 7)] = 0.4
+    prob[1, piece - 20] = 0.97
+    prob[2, piece + 1 : piece + 9] = 0.8
+    prob[3, w - 5 :] = 0.9
+    prob[5:] = np.random.default_rng(b).random((b - 5, w), dtype=np.float32)
+    prob = torch.as_tensor(prob, device=dev)
+    t1 = torch.full((b,), 0.5, device=dev)
+    _assert_scan_equals_twin(prob, t1, t1 * 0.5)
+    on, m, am = cuda_trig.trigger_scan(prob, t1, t1 * 0.5)
+    assert (am[4] == 0).all() and (on[4] == 2**31 - 1).all()  # never triggers: argmax 0 everywhere
+    assert (am[2, : piece + 1] == 0).all() and am[2, piece + 1] == piece + 1
+    end = min(w, 3 * piece + 7) - 1
+    assert on[1, end] == piece - 20 and am[1, end] == piece - 20 and m[1, end] == np.float32(0.97)
+
+
+def test_trigger_scan_unaligned_base(dev):
+    """A contiguous view that starts 4 bytes into its storage takes the scalar path."""
+    rng = np.random.default_rng(11)
+    b, w = 5, 9000
+    store = torch.as_tensor(np.concatenate([[0.0], _curves(rng, b, w).ravel()]).astype(np.float32),
+                            device=dev)
+    prob = store[1:].view(b, w)
+    assert prob.is_contiguous() and prob.data_ptr() % 16 != 0
+    t1 = torch.full((b,), 0.6, device=dev)
+    _assert_scan_equals_twin(prob, t1, t1 * 0.5)
 
 
 def test_trigger_scan_refuses_non_contiguous(dev):
@@ -302,7 +358,8 @@ def test_condition_windows_refusals(dev):
 @pytest.mark.parametrize("b,c,t,u,scale", [(232, 16, 47, 32, 1.0), (1, 16, 47, 32, 1.0),
                                            (3, 16, 1, 32, 1.0), (5, 8, 33, 16, 1.0),
                                            (7, 16, 64, 32, 1.0), (4, 3, 5, 7, 1.0),
-                                           (9, 16, 47, 32, 20.0)])
+                                           (9, 16, 47, 32, 20.0), (3, 16, 128, 32, 1.0),
+                                           (6, 5, 9, 40, 1.0), (600, 16, 47, 32, 1.0)])
 def test_addattn_matches_twin(dev, b, c, t, u, scale):
     rng = np.random.default_rng(b + t)
     x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev)
@@ -315,16 +372,66 @@ def test_addattn_matches_twin(dev, b, c, t, u, scale):
     assert (got - cuda_addattn.addattn_reference(x, q, k, wa)).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("scale", [0.5, 20.0])
+@pytest.mark.parametrize("t", [5, 47])
+@pytest.mark.parametrize("b", [1, 3, 232, 256])
+def test_addattn_both_entries_match_twins(dev, b, t, scale):
+    """``addattn`` (q and k projected by the caller) and ``addattn_x`` (projects
+    inside) against their twins, and against each other on PyTorch's
+    projections; scale 20 saturates tanh."""
+    rng = np.random.default_rng(b * 100 + t)
+    c, u = 16, 32
+    x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev)
+    wt, wx = (torch.as_tensor((rng.normal(size=(c, u)) * scale / 4).astype(np.float32), device=dev)
+              for _ in range(2))
+    bh = torch.as_tensor((rng.normal(size=u) * 0.1 * scale).astype(np.float32), device=dev)
+    wa = torch.as_tensor(rng.uniform(-0.3, 0.3, u).astype(np.float32), device=dev)
+    before = cuda_addattn.launches
+    got = cuda_addattn.addattn_x(x, wt, bh, wx, wa)
+    assert cuda_addattn.launches == before + 1  # one launch a block
+    assert torch.isfinite(got).all()
+    assert (got - cuda_addattn.addattn_x_reference(x, wt, bh, wx, wa)).abs().max().item() <= 1e-5
+    xt = x.transpose(1, 2)
+    q, k = (xt @ wt + bh).contiguous(), (xt @ wx).contiguous()
+    old = cuda_addattn.addattn(x, q, k, wa)
+    assert cuda_addattn.launches == before + 2
+    assert (old - cuda_addattn.addattn_reference(x, q, k, wa)).abs().max().item() <= 1e-5
+    assert (got - old).abs().max().item() <= 1e-5
+
+
+def test_seq_self_attention_is_one_launch(dev):
+    model = load_model("eqtransformer", seed=2, in_samples=1504, lstm_blocks=1, device=dev)
+    p = {k: v.detach() for k, v in model.transformer_d0.attention.params().items()}
+    x = torch.randn(9, 16, 47, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    before = cuda_addattn.launches
+    got = cuda_addattn.seq_self_attention(x, p)
+    assert cuda_addattn.launches == before + 1
+    want = cuda_addattn.addattn_x_reference(x, p["Wt"], p["bh"], p["Wx"], p["Wa"].reshape(-1))
+    assert (got - want).abs().max().item() <= 1e-5
+
+
 def test_addattn_refusals(dev):
-    x = torch.zeros(1, 16, 128, device=dev)
-    q = torch.zeros(1, 128, 32, device=dev)
+    """A CTA gets at most 227 KB of shared memory (above 48 KB by the opt-in
+    attribute): one window of T = 128 fits, of T = 256 (345 KB) does not."""
     wa = torch.zeros(32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):  # T = 128 does not fit
+    x = torch.zeros(1, 16, 256, device=dev)
+    q = torch.zeros(1, 256, 32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
         cuda_addattn.addattn(x, q, q, wa)
+    w = torch.zeros(16, 32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_addattn.addattn_x(x, w, wa, w, wa)
     x = torch.zeros(2, 47, 16, device=dev).transpose(1, 2)
     q = torch.zeros(2, 47, 32, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_addattn.addattn(x, q, q, wa)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_addattn.addattn_x(x, w, wa, w, wa)
+    # the wrapper's count of a CTA's shared memory is the kernel's own
+    smem = _build.function("addattn_smem_bytes", [ctypes.c_int] * 5)
+    for c, t, u, g, project in ((16, 47, 32, 2, 1), (16, 47, 32, 1, 0), (3, 5, 7, 4, 1),
+                                (5, 9, 40, 2, 0), (16, 128, 32, 1, 1)):
+        assert smem(c, t, u, g, project) == cuda_addattn._smem_bytes(c, t, u, g, bool(project))
 
 
 # ---- res_cnn_stack (K6)

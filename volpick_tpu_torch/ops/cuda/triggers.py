@@ -7,13 +7,19 @@ PyTorch twins.
 emission in one kernel); its twin is the ``"shift"`` scan path of
 ``volpick_tpu/ops/triggers.py::extract_triggers_batched``. Both return
 ``(peak_idx, peak_val, valid, onset, offset)``, each (B, K), and must agree
-exactly.
+exactly. ``trigger_extract_blocked`` is the ``"blocked"`` scan path of the same
+function, in plain PyTorch on any device: scan inside blocks, scan of the
+block summaries, one combine with the exclusive prefix. That is the two-level
+structure of the ``trigger_scan`` kernel (a piece a warp, piece summaries, the
+carry from the left), so it holds that algebra to the flat scan where the
+kernel cannot run.
 
 ``trigger_scan`` ports ``trigger_scan_pallas_raw`` of the same module: the
 scanned state ``(onset, max, argmax)`` at every position, each (B, W), with
 no emission; ``emit_picks`` is the plain PyTorch emission that follows it
 (``volpick_tpu/ops/triggers.py:328-351``). Kernel and twin agree exactly at
-every position.
+every position. The kernel splits a row into pieces of ``scan_plan(B, W)``
+samples, one warp a piece, and a warp walks its piece in steps of ``SCAN_STEP``.
 
 Each wrapper takes the twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no other route.
@@ -33,8 +39,15 @@ _I32_MAX = 2**31 - 1
 # finite stand-in for -inf of volpick_tpu/ops/pallas/triggers.py
 SCAN_NEG = -3.4e38
 
+# the trigger_scan kernel: samples a warp scans at a time (32 lanes x 4), and
+# the number of warps the split of the rows aims at (16 an SM of an H100's 132:
+# at (24, 120000) no slower than 32 an SM, and 3000 rows of 6000 stay whole,
+# which a second piece a row would slow by a fifth)
+SCAN_STEP = 128
+SCAN_TARGET_WARPS = 2112
+
 launches = 0  # kernel launches made by trigger_extract on CUDA tensors
-scan_launches = 0  # kernel launches made by trigger_scan on CUDA tensors
+scan_launches = 0  # calls of trigger_scan that went to its kernel (one or two launches each)
 
 Picks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 Scan = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -57,28 +70,50 @@ def _combine(a, c):
     )
 
 
+def _identity(state, shape, neg: float):
+    """The identity state in arrays of `shape`, typed like `state`."""
+    return tuple(torch.full(shape, fill, dtype=arr.dtype, device=arr.device)
+                 for arr, fill in zip(state, (False, _I32_MAX, neg, 0)))
+
+
 def _shift_right(state, d: int, neg: float):
-    """Shift each (B, W) state array right by d, filling with the identity."""
-    fills = (False, _I32_MAX, neg, 0)
+    """Shift each state array right by d along its last axis, filling with
+    the identity."""
     out = []
-    for arr, fill in zip(state, fills):
-        shifted = torch.full_like(arr, fill)
-        shifted[:, d:] = arr[:, : arr.shape[1] - d]
-        out.append(shifted)
+    for arr, fill in zip(state, _identity(state, state[0].shape, neg)):
+        fill[..., d:] = arr[..., : arr.shape[-1] - d]
+        out.append(fill)
     return tuple(out)
 
 
 def _scan(state, neg: float):
-    """Hillis-Steele inclusive scan along the row: log2(W) shift+combine
+    """Hillis-Steele inclusive scan along the last axis: log2(W) shift+combine
     passes. Position 0 takes the identity on its left in the first pass, so a
     stretch before the first run ends with argmax 0, as a fold from the
     identity does."""
-    w = state[0].shape[1]
+    w = state[0].shape[-1]
     d = 1
     while d < w:
         state = _combine(_shift_right(state, d, neg), state)
         d *= 2
     return state
+
+
+def _scan_blocked(state, neg: float, block: int):
+    """Two-level scan of ``volpick_tpu/ops/triggers.py::_scan_blocked``: (B, W)
+    is cut into (B, Nb, block), scanned inside the blocks, the blocks' last
+    states are scanned over Nb, and each block is combined with the state
+    before it (the identity before block 0). Equal to ``_scan`` at every
+    position for every block length: the monoid is exactly associative."""
+    b, w = state[0].shape
+    nb = -(-w // block)
+    if nb * block != w:
+        state = tuple(torch.cat([arr, pad], dim=1)
+                      for arr, pad in zip(state, _identity(state, (b, nb * block - w), neg)))
+    intra = _scan(tuple(arr.reshape(b, nb, block) for arr in state), neg)
+    summaries = _scan(tuple(arr[..., -1] for arr in intra), neg)
+    before = tuple(arr[..., None] for arr in _shift_right(summaries, 1, neg))
+    return tuple(arr.reshape(b, nb * block)[:, :w] for arr in _combine(before, intra))
 
 
 def _run_ends(prob: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
@@ -90,8 +125,11 @@ def _run_ends(prob: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
     return above2 & ~next2
 
 
-def _scan_states(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, neg: float) -> Scan:
-    """Segmented scan in plain PyTorch: (onset, max, argmax) at every position."""
+def _scan_states(
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, neg: float, block: int = 0
+) -> Scan:
+    """Segmented scan in plain PyTorch: (onset, max, argmax) at every
+    position; flat for ``block`` 0, else two-level in blocks of that length."""
     b, w = prob.shape
     above2 = prob > t2[:, None]
     above1 = prob > t1[:, None]
@@ -104,7 +142,7 @@ def _scan_states(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, neg: fl
         torch.where(above2, prob, torch.full_like(prob, neg)),
         pos,
     )
-    _, onset, run_max, run_argmax = _scan(state, neg)
+    _, onset, run_max, run_argmax = _scan_blocked(state, neg, block) if block else _scan(state, neg)
     return onset, run_max, run_argmax
 
 
@@ -146,10 +184,39 @@ def trigger_extract_reference(
     return emit_picks(prob, t2, _scan_states(prob, t1, t2, float("-inf")), max_picks)
 
 
-def trigger_scan_reference(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor) -> Scan:
+def trigger_extract_blocked(
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int, block: int = 2048
+) -> Picks:
+    """``trigger_extract_reference`` with the two-level scan in blocks of
+    ``block`` samples (the JAX package's ``"blocked"`` method and its block
+    length), on any device; the same picks."""
+    _check(prob, t1, t2, max_picks)
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    return emit_picks(prob, t2, _scan_states(prob, t1, t2, float("-inf"), block), max_picks)
+
+
+def trigger_scan_reference(
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, block: int = 0
+) -> Scan:
     """Plain PyTorch twin of ``trigger_scan``, on any device; see there for
-    what the outputs hold."""
-    return _scan_states(prob, t1, t2, SCAN_NEG)
+    what the outputs hold. ``block`` > 0 takes the two-level scan in blocks of
+    that length, which gives the same three arrays."""
+    return _scan_states(prob, t1, t2, SCAN_NEG, block)
+
+
+def scan_plan(b: int, w: int) -> Tuple[int, int]:
+    """``(piece, n_pieces)``: how the ``trigger_scan`` kernel splits a row of W
+    samples over warps when there are B rows. The piece is a whole number of
+    steps, as few pieces a row as bring the launch to ``SCAN_TARGET_WARPS``
+    warps, and one piece a row where the rows alone are that many. A row whose
+    start is not 16-byte aligned is walked on a grid shifted by up to 3
+    samples, so W not a multiple of 4 plans for W + 3."""
+    span = w + (3 if w % 4 else 0)
+    steps = -(-span // SCAN_STEP)
+    per_row = max(1, min(steps, -(-SCAN_TARGET_WARPS // max(b, 1))))
+    piece = -(-steps // per_row) * SCAN_STEP
+    return piece, -(-span // piece)
 
 
 def _check(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int) -> None:
@@ -220,8 +287,10 @@ def trigger_scan(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor) -> Scan
     row they hold (INT32_MAX, -3.4e38, 0). Picks are read at run ends, where
     the state covers the whole run (``emit_picks``).
 
-    A CPU tensor goes to ``trigger_scan_reference``; a CUDA tensor launches
-    the kernel (one CTA per row) or raises."""
+    A CPU tensor goes to ``trigger_scan_reference``; a CUDA tensor goes to
+    the kernel (``scan_plan(B, W)`` pieces a row, one warp each; two launches
+    where a row has more than one piece, the first for the piece summaries) or
+    raises."""
     global scan_launches
     _check(prob, t1, t2, 1)
     if prob.device.type == "cpu":
@@ -237,12 +306,15 @@ def trigger_scan(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor) -> Scan
     run_argmax = torch.empty((b, w), dtype=torch.int32, device=prob.device)
     if b == 0:
         return onset, run_max, run_argmax
+    piece, n_pieces = scan_plan(b, w)
+    # one 16-byte summary for every piece that has a piece on its right
+    summaries = torch.empty((b, n_pieces - 1, 4), dtype=torch.int32, device=prob.device)
     fn = _build.function(
-        "trigger_scan_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+        "trigger_scan_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
     )
     err = fn(
-        prob.data_ptr(), t1.data_ptr(), t2.data_ptr(), b, w,
-        onset.data_ptr(), run_max.data_ptr(), run_argmax.data_ptr(),
+        prob.data_ptr(), t1.data_ptr(), t2.data_ptr(), b, w, piece, n_pieces,
+        summaries.data_ptr(), onset.data_ptr(), run_max.data_ptr(), run_argmax.data_ptr(),
         torch.cuda.current_stream(prob.device).cuda_stream,
     )
     if err != 0:

@@ -15,10 +15,12 @@ the same in both):
   position, and the emission (run-end mask, earliest-k, gathers) follows in
   plain PyTorch;
 - ``"shift"``: the scan itself in plain PyTorch (shift + combine passes)
-  followed by the same emission, on any device.
+  followed by the same emission, on any device;
+- ``"blocked"``: as ``"shift"``, the scan in two levels (inside blocks of 2048
+  samples, then over the blocks' summaries), on any device.
 
-All give the same picks. ``"assoc"`` and ``"blocked"``, the JAX package's
-other plain lowerings of the same scan, are not ported.
+All give the same picks. ``"assoc"``, the JAX package's lowering through
+``jax.lax.associative_scan``, is not ported.
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ from volpick_tpu_torch.ops.cuda.triggers import (
     Picks,
     emit_picks,
     trigger_extract,
+    trigger_extract_blocked,
     trigger_extract_reference,
     trigger_scan,
 )
 
-_NOT_PORTED = ("assoc", "blocked")
+_NOT_PORTED = ("assoc",)
 
 
 def default_trigger_method() -> str:
@@ -60,9 +63,9 @@ def extract_triggers_batched(
         method = default_trigger_method()
     if method in _NOT_PORTED:
         raise NotImplementedError(
-            f"trigger method {method!r} is not ported; use pallas_full, pallas or shift"
+            f"trigger method {method!r} is not ported; use pallas_full, pallas, shift or blocked"
         )
-    if method not in ("pallas_full", "pallas", "shift"):
+    if method not in ("pallas_full", "pallas", "shift", "blocked"):
         raise ValueError(f"unknown trigger scan method {method!r}")
     b = prob.shape[0]
     t1 = torch.as_tensor(thres1, dtype=torch.float32, device=prob.device)
@@ -76,4 +79,6 @@ def extract_triggers_batched(
         return trigger_extract(prob, t1, t2, max_picks)
     if method == "pallas":
         return emit_picks(prob, t2, trigger_scan(prob, t1, t2), max_picks)
+    if method == "blocked":
+        return trigger_extract_blocked(prob, t1, t2, max_picks)
     return trigger_extract_reference(prob, t1, t2, max_picks)
