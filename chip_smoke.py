@@ -8,7 +8,14 @@
    (one nvcc per source, in parallel);
 3. holds each kernel against its plain PyTorch twin on the card, at the
    shapes of the main paths, and times kernel and twin with CUDA events:
-   K1 trigger_extract at (24, 120000), K = 80, exactly equal; K2 at B=232,
+   K1 trigger_extract at (24, 120000), K = 80, with runs across every piece
+   boundary of its split of a row over warps and rows built around its count
+   of picks a piece (a run open where a piece begins that crossed t1 only in
+   an earlier piece, the same without any crossing, the K-th pick the last
+   run end of one piece and the next the first of the following, exactly K
+   picks), and at (3000, 6000), K = 64, many short rows of one piece each:
+   exactly equal in all five outputs, timed by its kernels' rows in
+   torch.profiler with the CUDA-event time beside it; K2 at B=232,
    C in {64, 16}, H=16, T=47 within 1e-5 in both forms: lstm_multi (G=2
    inputs, (G, B, H, T) out) and lstm_branches (one x, the second branch
    scanning time backward, (B, G*H, T) out, the form the models call), the
@@ -21,7 +28,8 @@
    one piece each:
    exactly equal in all three outputs, timed by CUDA events and by its
    kernels' rows in torch.profiler, each shape beside its own bound; K4
-   condition_windows at (232, 3, 6000) over detrend x norm within 2e-5; K5 at
+   condition_windows at (232, 3, 6000) over detrend x norm within 2e-5, each
+   mode timed by the kernel's profiler row and by CUDA events; K5 at
    x (232, 16, 47), U = 32 within 1e-5 in both entries: addattn (q / k
    (232, 47, 32) projected by the caller) and addattn_x (projects inside,
    the entry the model calls), the latter also against the former fed
@@ -90,7 +98,7 @@ import torch
 import torch.nn.functional as F
 
 TRIG_ROWS, TRIG_W, TRIG_K = 24, 120_000, 80
-SHORT_ROWS, SHORT_W = 3000, 6000  # many short rows, as an evaluation sweep hands them to K3
+SHORT_ROWS, SHORT_W, SHORT_K = 3000, 6000, 64  # many short rows, as an evaluation sweep hands them to K1 / K3
 LSTM_G, LSTM_B, LSTM_H, LSTM_T = 2, 232, 16, 47
 MHA_B, MHA_D, MHA_T, MHA_H = 128, 128, 94, 4
 COND_N, COND_C, COND_W = 232, 3, 6000
@@ -185,6 +193,24 @@ def trigger_curves(rng, step: int, piece: int):
     r[:5] = [0.9, 0.9, 0.6, 0.9, 0.3]
     r[60_000:60_009] = [0.3, 0.6, 0.7, 0.7, 0.7, 0.4, 0.26, 0.6, 0.2]
     rows.append(r)
+    # K1's count: a run open where a piece begins that ends in it without
+    # crossing t1 there emits only if it crossed t1 in an earlier piece
+    # (pending, resolved true); the same run without any crossing (resolved
+    # false), a later pick keeping its slot either way
+    for crossed in (True, False):
+        r = np.full(w, 0.1, np.float32)
+        r[piece - 30 : 2 * piece + 40] = 0.4
+        if crossed:
+            r[piece - 20] = 0.9
+        r[4 * piece + 7 : 4 * piece + 12] = 0.8
+        rows.append(r)
+    # the K-th pick is the last run end of one piece, the (K+1)-th the first
+    # of the next; and a row with exactly K picks
+    ends = [2 * piece - 2 - 3 * j for j in range(TRIG_K)][::-1]
+    for more in ([2 * piece + 1], []):
+        r = np.full(w, 0.1, np.float32)
+        r[ends + more] = 0.9
+        rows.append(r)
     n_fixed = len(rows)
     while len(rows) < TRIG_ROWS:
         width = int(rng.integers(5, 400))
@@ -253,23 +279,43 @@ def main() -> None:
     t1[n_fixed:] = torch.as_tensor(
         rng.uniform(0.3, 0.8, TRIG_ROWS - n_fixed).astype(np.float32), device=dev)
     t2 = t1 / 2.0
-    got = cuda_trig.trigger_extract(prob, t1, t2, TRIG_K)
-    want = cuda_trig.trigger_extract_reference(prob, t1, t2, TRIG_K)
-    torch.cuda.synchronize()
-    trig_err = 0.0
-    for field, g, w in zip(("peak_idx", "peak_val", "valid", "onset", "offset"), got, want):
-        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
-            fail(f"trigger_extract {field} differs from its twin")
-        trig_err = max(trig_err, float((g.double() - w.double()).abs().max()))
+    def extract_equal(p, a, b_, k, what):
+        got_e = cuda_trig.trigger_extract(p, a, b_, k)
+        want_e = cuda_trig.trigger_extract_reference(p, a, b_, k)
+        torch.cuda.synchronize()
+        err = 0.0
+        for field, g, w in zip(("peak_idx", "peak_val", "valid", "onset", "offset"), got_e, want_e):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                fail(f"trigger_extract {what} {field} differs from its twin")
+            err = max(err, float((g.double() - w.double()).abs().max()))
+        return got_e, err
+
+    def extract_times(p, a, b_, k):
+        """(ms by CUDA events, summed ms of its kernels' profiler rows a call, launches a call)"""
+        ev = cuda_ms(lambda: cuda_trig.trigger_extract(p, a, b_, k))
+        _, _, events = profiled(lambda: [cuda_trig.trigger_extract(p, a, b_, k) for _ in range(10)])
+        rows_ = [e for e in events if "trigger_extract_kernel" in e.key]
+        return ev, sum(self_device_us(e) for e in rows_) / 1e4, sum(e.count for e in rows_) / 10
+
+    got, trig_err = extract_equal(prob, t1, t2, TRIG_K, f"({TRIG_ROWS}, {TRIG_W})")
     n_valid = got[2].sum(dim=1).tolist()
-    print(f"K1 trigger_extract ({TRIG_ROWS}, {TRIG_W}) K={TRIG_K}: equal to twin "
-          f"in all five outputs; picks per row {n_valid}")
-    trig_ms = cuda_ms(lambda: cuda_trig.trigger_extract(prob, t1, t2, TRIG_K))
+    # the rows built around K1's count: pending resolved true and false, the
+    # cut at K between two pieces, exactly K picks
+    if n_valid[n_fixed - 4 : n_fixed] != [2, 1, TRIG_K, TRIG_K] or int(
+            got[4][n_fixed - 2, -1]) != 2 * scan_piece - 2:
+        fail(f"trigger_extract: the constructed rows give {n_valid[n_fixed - 4 : n_fixed]} picks")
+    print(f"K1 trigger_extract ({TRIG_ROWS}, {TRIG_W}) K={TRIG_K}, {scan_pieces} pieces of "
+          f"{scan_piece} a row: equal to twin in all five outputs; picks per row {n_valid}")
+    trig_event_ms, trig_ms, trig_n = extract_times(prob, t1, t2, TRIG_K)
     trig_plain_ms = cuda_ms(lambda: cuda_trig.trigger_extract_reference(prob, t1, t2, TRIG_K), iters=5)
     # a handful of compares and selects a sample
     trig_bound = bound(nbytes(prob, t1, t2, *got), flops=8 * prob.numel())
-    print(f"K1 time on {card}: kernel {trig_ms:.4f} ms, twin {trig_plain_ms:.4f} ms, bound "
-          f"{trig_bound[0]:.4f} ms ({trig_bound[1]}), no library call computes it")
+    print(f"K1 time on {card}: {trig_ms:.4f} ms of summed kernel time under torch.profiler "
+          f"({trig_n:.0f} launch a call: "
+          f"{'one cooperative launch' if trig_n == 1 else 'summaries, then emission'}), "
+          f"{trig_event_ms:.4f} ms by CUDA events (the host's pace), twin {trig_plain_ms:.4f} ms, "
+          f"bound {trig_bound[0]:.4f} ms ({trig_bound[1]}; the kernel {trig_ms / trig_bound[0]:.1f}x), "
+          f"no library call computes it")
 
     # K3: the same curves, the scanned state at every position; then many
     # short rows, one piece each
@@ -328,11 +374,22 @@ def main() -> None:
           f"{card}: {short_ms:.4f} ms by CUDA events, {short_kernel_ms:.4f} ms of kernel time under "
           f"torch.profiler, twin {short_plain_ms:.4f} ms, bound {short_bound[0]:.4f} ms "
           f"({short_bound[1]})")
+    _, short_trig_err = extract_equal(short, st1, st2, SHORT_K, f"({SHORT_ROWS}, {SHORT_W})")
+    short_trig_event_ms, short_trig_ms, short_trig_n = extract_times(short, st1, st2, SHORT_K)
+    short_trig_plain_ms = cuda_ms(
+        lambda: cuda_trig.trigger_extract_reference(short, st1, st2, SHORT_K), iters=3)
+    short_trig_bound = bound(nbytes(short, st1, st2) + SHORT_ROWS * SHORT_K * 17, flops=8 * short.numel())
+    print(f"K1 trigger_extract ({SHORT_ROWS}, {SHORT_W}) K={SHORT_K}, one piece a row, "
+          f"{short_trig_n:.0f} launch a call: equal to twin in all five outputs; time on {card}: "
+          f"{short_trig_ms:.4f} ms of kernel time under torch.profiler, {short_trig_event_ms:.4f} ms by "
+          f"CUDA events, twin {short_trig_plain_ms:.4f} ms, bound {short_trig_bound[0]:.4f} ms "
+          f"({short_trig_bound[1]})")
+    trig_err = max(trig_err, short_trig_err)
     del short, short_got
 
     # K4: rows with an offset and a trend far larger than the signal
     xc = torch.as_tensor(conditioning_rows(rng, COND_N, COND_C, COND_W), device=dev)
-    cond_err, cond_ms, cond_plain_ms = 0.0, {}, {}
+    cond_err, cond_ms, cond_event_ms, cond_plain_ms = 0.0, {}, {}, {}
     for detrend in (True, False):
         for norm in ("peak", "std"):
             kw_c = dict(detrend=detrend, norm=norm)
@@ -341,16 +398,27 @@ def main() -> None:
             if not err <= COND_TOL:
                 fail(f"condition_windows {kw_c} max abs err {err} > {COND_TOL}")
             cond_err = max(cond_err, err)
-            cond_ms[detrend, norm] = cuda_ms(lambda: cuda_cond.condition_windows(xc, **kw_c))
+            cond_event_ms[detrend, norm] = cuda_ms(lambda: cuda_cond.condition_windows(xc, **kw_c))
+            _, _, events = profiled(
+                lambda: [cuda_cond.condition_windows(xc, **kw_c) for _ in range(10)])
+            cond_ms[detrend, norm] = sum(
+                self_device_us(e) for e in events if "condition_kernel" in e.key) / 1e4
             cond_plain_ms[detrend, norm] = cuda_ms(
                 lambda: cuda_cond.condition_windows_reference(xc, **kw_c), iters=10)
             print(f"K4 condition_windows ({COND_N}, {COND_C}, {COND_W}) detrend={detrend} "
                   f"norm={norm}: max abs err {err:.3e} (tol {COND_TOL}); kernel "
-                  f"{cond_ms[detrend, norm]:.4f} ms, twin {cond_plain_ms[detrend, norm]:.4f} ms")
+                  f"{cond_ms[detrend, norm]:.4f} ms (its row under torch.profiler), "
+                  f"{cond_event_ms[detrend, norm]:.4f} ms by CUDA events, twin "
+                  f"{cond_plain_ms[detrend, norm]:.4f} ms")
     cond_bound = bound(2 * nbytes(xc), flops=10 * xc.numel())
-    print(f"K4 time on {card} (detrend, peak: EQTransformer's): kernel {cond_ms[True, 'peak']:.4f} "
-          f"ms, twin {cond_plain_ms[True, 'peak']:.4f} ms, bound {cond_bound[0]:.4f} ms "
-          f"({cond_bound[1]}), no library call computes it")
+    cond_ctas, cond_bufs = cuda_cond.ring_plan(
+        COND_N * COND_C, COND_W, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"K4 time on {card} (detrend, peak: EQTransformer's; {cond_ctas} persistent CTAs, "
+          f"{cond_bufs} row buffers each): kernel {cond_ms[True, 'peak']:.4f} ms (its row under "
+          f"torch.profiler), {cond_event_ms[True, 'peak']:.4f} ms by CUDA events (the host's pace), "
+          f"twin {cond_plain_ms[True, 'peak']:.4f} ms, bound {cond_bound[0]:.4f} ms "
+          f"({cond_bound[1]}; the kernel {cond_ms[True, 'peak'] / cond_bound[0]:.2f}x), no library "
+          f"call computes it")
 
     lstm_err, lstm_ms, lstm_bound, lstm_lib_ms = 0.0, {}, {}, {}
     rev = (False, True)
@@ -795,8 +863,15 @@ def main() -> None:
                      "library_ms": library_ms}, **extra)
 
     print(json.dumps({"kernels": [
+        # ms: the summed profiler rows of its kernels a call (one cooperative
+        # launch, or two plain ones); event_ms: CUDA events around whole calls,
+        # which read the host's pace; *_short_rows at (3000, 6000), K = 64
         entry("trigger_extract", "trigger_extract.cu", "triggers.py:250", "eqtransformer",
-              trig_err, trig_ms, trig_plain_ms, trig_bound),
+              trig_err, trig_ms, trig_plain_ms, trig_bound, event_ms=trig_event_ms,
+              kernel_launches_a_call=trig_n, x_bound=trig_ms / trig_bound[0],
+              ms_short_rows=short_trig_ms, event_ms_short_rows=short_trig_event_ms,
+              plain_ms_short_rows=short_trig_plain_ms, bound_ms_short_rows=short_trig_bound[0],
+              bound_by_short_rows=short_trig_bound[1]),
         # lstm_branches, the form the models call, at C=64 and at C=16 (*_c16).
         # ms, library_ms: summed kernel time of one call under the profiler
         # (projection included); event_ms, library_event_ms: CUDA events
@@ -817,9 +892,13 @@ def main() -> None:
               ms_short_rows=short_ms,
               kernel_ms_short_rows=short_kernel_ms, plain_ms_short_rows=short_plain_ms,
               bound_ms_short_rows=short_bound[0], bound_by_short_rows=short_bound[1]),
-        # detrend + peak, EQTransformer's conditioning
+        # detrend + peak, EQTransformer's conditioning. ms: the kernel's row
+        # under the profiler; event_ms: CUDA events around back-to-back calls;
+        # ms_by_mode: the profiler row of every detrend x norm mode
         entry("conditioning", "conditioning.cu", "conditioning.py:50", OPTIN, cond_err,
-              cond_ms[True, "peak"], cond_plain_ms[True, "peak"], cond_bound),
+              cond_ms[True, "peak"], cond_plain_ms[True, "peak"], cond_bound,
+              event_ms=cond_event_ms[True, "peak"], x_bound=cond_ms[True, "peak"] / cond_bound[0],
+              ms_by_mode={f"detrend={d},norm={n}": ms for (d, n), ms in cond_ms.items()}),
         # addattn_x, the entry the model calls; *_xqk is addattn, fed q and k.
         # ms: the kernel's row under the profiler; event_ms: CUDA events around
         # back-to-back calls, which read the host's pace

@@ -123,3 +123,23 @@ def test_use_pallas_picker_matches_jax_framed_conditioning(total, overlap, blind
     res = plain.classify_arrays(data[None], THRESHOLDS, **kw)
     for label in ("P", "S"):
         assert _picks(res, label, total) == _picks(got, label, total)
+
+
+# (rows, W, bulk copies possible) -> (CTAs, row buffers) on a card of 132 SMs
+@pytest.mark.parametrize("rows,w,bulk,want", [
+    (696, 6000, True, (348, 2)),      # EQTransformer's step: 528 slots, two rows a CTA on 348
+    (6000, 6000, True, (500, 2)),     # many rows: 12 turns on 500 CTAs, none idle in the last
+    (768, 3001, False, (768, 1)),     # PhaseNet's width: plain loads, one buffer, 8 CTAs an SM
+    (696, 6000, False, (696, 1)),     # an unaligned x at an even width
+    (3, conditioning.MAX_SAMPLES, True, (3, 1)),  # the longest row: one buffer, 4 CTAs an SM
+    (900, 12000, True, (450, 1)),     # two buffers of 48 KB would leave 2 CTAs an SM
+    (1, 1, True, (1, 2)),
+])
+def test_ring_plan(rows, w, bulk, want):
+    """How the kernel's launch is cut: never more CTAs than rows, every CTA
+    the same count of rows up to one, the ring inside an SM's shared memory."""
+    ctas, n_buf = conditioning.ring_plan(rows, w, 132, bulk=bulk)
+    assert (ctas, n_buf) == want
+    turns = -(-rows // ctas)
+    assert 1 <= ctas <= rows and ctas * turns >= rows > ctas * (turns - 1) - turns
+    assert n_buf * 4 * w + conditioning._SMEM_PER_CTA <= 227 * 1024

@@ -3,7 +3,7 @@
 Marked ``cuda``; every test skips when torch sees no CUDA device (decided in
 a fixture, not at import). Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``. Tolerances:
-trigger extraction and trigger scan exact; LSTM (both forms), MHA (both
+trigger extraction (both forms of its launch) and trigger scan exact; LSTM (both forms), MHA (both
 entries) and additive attention (both entries) 1e-5 (the tests/test_pallas.py pins); conditioning 2e-5; the res-CNN stack
 3e-4; picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another
 order on the card).
@@ -71,6 +71,97 @@ def test_trigger_extract_equals_twin(dev, b, w, k):
     want = cuda_trig.trigger_extract_reference(prob, t1, t2, k)
     for g, r in zip(got, want):
         assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def _assert_extract_equals_twin(prob, t1, t2, k):
+    before = cuda_trig.launches
+    got = cuda_trig.trigger_extract(prob, t1, t2, k)
+    assert cuda_trig.launches == before + 1  # one a call, however many kernels it launches
+    want = cuda_trig.trigger_extract_reference(prob, t1, t2, k)
+    for name, g, r in zip(("peak_idx", "peak_val", "valid", "onset", "offset"), got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+
+
+@pytest.fixture(params=[True, False], ids=["cooperative", "two-launches"])
+def extract_form(request):
+    """Both forms of the trigger_extract kernel for a row of several pieces:
+    the cooperative launch (taken where every CTA is resident) and the two
+    plain launches."""
+    saved = cuda_trig.EXTRACT_COOPERATIVE
+    cuda_trig.EXTRACT_COOPERATIVE = request.param
+    yield request.param
+    cuda_trig.EXTRACT_COOPERATIVE = saved
+
+
+# (24, 120000): the main path, 86 pieces a row; (3000, 6000): one piece a row,
+# one launch; (1, 120001): 938 pieces of one step, more summaries than a warp,
+# an odd width; (5, 1): one ragged quad; (7, 4097): rows that start off a
+# 16-byte boundary, one sample past a step; (100, 30001): 22 pieces a row
+@pytest.mark.parametrize("k", [1, 64, 80])
+@pytest.mark.parametrize("b,w", [(24, 120000), (3000, 6000), (1, 120001), (5, 1), (7, 4097),
+                                 (100, 30001)])
+def test_trigger_extract_split_equals_twin(dev, extract_form, b, w, k):
+    rng = np.random.default_rng(w + k)
+    curves = _curves(rng, b, w)
+    curves[-1] = 0.95  # a row that is all one run: longer than any piece
+    prob = torch.as_tensor(curves, device=dev)
+    t1 = torch.as_tensor(rng.uniform(0.3, 0.8, b).astype(np.float32), device=dev)
+    _assert_extract_equals_twin(prob, t1, t1 * 0.5, k)
+
+
+@pytest.mark.parametrize("b,w", [(24, 120000), (8, 30001)])
+def test_trigger_extract_piece_boundaries(dev, extract_form, b, w):
+    """Rows built around the pieces of the kernel's split: what a piece counts
+    alone (sure), what the state carried into it decides (pending, both ways),
+    and the cut at K inside a piece and exactly between two."""
+    piece, n_pieces = cuda_trig.scan_plan(b, w)
+    assert n_pieces > 4
+    k = 6
+    prob = np.full((b, w), 0.1, np.float32)
+    for c in range(piece, w, piece):  # a run across every piece boundary: far more than K picks
+        prob[0, c - 2 : c + 3] = 0.9
+    prob[1, piece - 50 : 3 * piece + 7] = 0.4  # pending in two pieces, resolved true:
+    prob[1, piece - 20] = 0.97                 # crossed t1 only in its first piece
+    prob[1, 4 * piece : 4 * piece + 3] = 0.8
+    prob[2, piece - 50 : 3 * piece + 7] = 0.4  # the same, never crossing: resolved false
+    prob[2, 4 * piece : 4 * piece + 3] = 0.8
+    prob[3, w - 5 :] = 0.9  # touches the row end
+    # row 4 never triggers; row 5: the K-th pick is the last run end of piece 1,
+    # the next the first of piece 2; row 6: exactly K picks
+    for row, n in ((5, k + 1), (6, k)):
+        ends = [2 * piece - 2 - 3 * j for j in range(k)][::-1] + [2 * piece + 1]
+        prob[row, ends[-n:] if row == 5 else ends[:n]] = 0.9
+    prob[7:] = np.random.default_rng(b).random((b - 7, w), dtype=np.float32)
+    prob = torch.as_tensor(prob, device=dev)
+    t1 = torch.full((b,), 0.5, device=dev)
+    _assert_extract_equals_twin(prob, t1, t1 * 0.5, k)
+    _, _, valid, on, off = cuda_trig.trigger_extract(prob, t1, t1 * 0.5, k)
+    assert valid.sum(dim=1)[:7].tolist() == [k, 2, 1, 1, 0, k, k]
+    assert on[1, 0] == piece - 20 and off[1, 0] == 3 * piece + 6
+    assert off[5, -1] == 2 * piece - 2 and off[6, -1] == 2 * piece - 2
+
+
+def test_trigger_extract_unaligned_base(dev, extract_form):
+    """A contiguous view that starts 4 bytes into its storage takes the scalar path."""
+    rng = np.random.default_rng(11)
+    b, w = 5, 9000
+    store = torch.as_tensor(np.concatenate([[0.0], _curves(rng, b, w).ravel()]).astype(np.float32),
+                            device=dev)
+    prob = store[1:].view(b, w)
+    assert prob.is_contiguous() and prob.data_ptr() % 16 != 0
+    t1 = torch.full((b,), 0.6, device=dev)
+    _assert_extract_equals_twin(prob, t1, t1 * 0.5, 64)
+
+
+def test_trigger_extract_repeats_bit_equal(dev, extract_form):
+    """Back-to-back calls on one stream share the summaries' scratch."""
+    rng = np.random.default_rng(5)
+    prob = torch.as_tensor(_curves(rng, 24, 50000), device=dev)
+    t1 = torch.full((24,), 0.55, device=dev)
+    outs = [cuda_trig.trigger_extract(prob, t1, t1 * 0.5, 80) for _ in range(20)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert all(torch.equal(a, b_) for a, b_ in zip(o, outs[0]))
 
 
 def _lstm_args(dev, rng, g, c, h):
@@ -342,6 +433,53 @@ def test_condition_windows_matches_twin(dev, detrend, norm, n, c, w):
     assert cuda_cond.launches == before + 1
     want = cuda_cond.condition_windows_reference(x, detrend=detrend, norm=norm)
     assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.fixture(params=[(3, 3), (2, 4), (1, 2), (2, 1)], ids=["3buf", "2buf", "1buf", "1cta"])
+def ring_form(request):
+    """Forms of the conditioning kernel: ring depth and CTAs an SM."""
+    saved = cuda_cond.RING_BUFFERS, cuda_cond.CTAS_PER_SM
+    cuda_cond.RING_BUFFERS, cuda_cond.CTAS_PER_SM = request.param
+    yield request.param
+    cuda_cond.RING_BUFFERS, cuda_cond.CTAS_PER_SM = saved
+
+
+def _cond_rows(rng, n, c, w, dev):
+    t = np.linspace(-1.0, 1.0, w)
+    x = rng.normal(size=(n, c, w)) + rng.uniform(-20, 20, (n, c, 1)) + rng.uniform(-30, 30, (n, c, 1)) * t
+    return torch.as_tensor(x.astype(np.float32), device=dev)
+
+
+# (232, 3, 6000): the main path; (700, 3, 6000): several rows a CTA, the ring
+# goes round; (5, 3, 3001): the plain-load path; (3, 1, MAX_SAMPLES): the
+# fewest buffers; (4, 3, 24): rows shorter than a CTA
+@pytest.mark.parametrize("detrend", [False, True])
+@pytest.mark.parametrize("norm", ["peak", "std"])
+@pytest.mark.parametrize("n,c,w", [(232, 3, 6000), (700, 3, 6000), (5, 3, 3001),
+                                   (3, 1, cuda_cond.MAX_SAMPLES), (4, 3, 24)])
+def test_condition_windows_ring_matches_twin(dev, ring_form, detrend, norm, n, c, w):
+    x = _cond_rows(np.random.default_rng(n + w), n, c, w, dev)
+    before = cuda_cond.launches
+    got = cuda_cond.condition_windows(x, detrend=detrend, norm=norm)
+    assert cuda_cond.launches == before + 1
+    want = cuda_cond.condition_windows_reference(x, detrend=detrend, norm=norm)
+    assert (got - want).abs().max().item() <= 2e-5
+    # a buffer loaded again before its row has left shows as a difference between calls
+    for _ in range(5):
+        assert torch.equal(cuda_cond.condition_windows(x, detrend=detrend, norm=norm), got)
+
+
+def test_condition_windows_unaligned_base(dev, ring_form):
+    """A contiguous view that starts 4 bytes into its storage takes plain loads and stores."""
+    n, c, w = 40, 3, 6000
+    flat = _cond_rows(np.random.default_rng(3), n, c, w, dev).reshape(-1)
+    store = torch.cat([flat.new_zeros(1), flat])
+    x = store[1:].view(n, c, w)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    for detrend in (False, True):
+        got = cuda_cond.condition_windows(x, detrend=detrend, norm="peak")
+        want = cuda_cond.condition_windows_reference(x, detrend=detrend, norm="peak")
+        assert (got - want).abs().max().item() <= 2e-5
 
 
 def test_condition_windows_refusals(dev):

@@ -162,6 +162,80 @@ def test_small_eqt_stream_matches_jax(small_eqt, overlap):
     np.testing.assert_allclose(ann[0].data, curves[0, 0], atol=0)
 
 
+def test_span_conditioning_matches_per_window_path(small_eqt):
+    """Conditioning a step's windows from its span of the stream and
+    conditioning the framed windows one by one give the same curves (within
+    1e-5: the sums run in another order) and the same picks, where the stride
+    divides the window. The port's counterpart of
+    tests/test_picker.py::test_span_conditioning_matches_per_window_path."""
+    _, _, model = small_eqt
+    stream = _eqt_stream(np.random.default_rng(7), 4100)
+    on = WaveformPicker(model, device="cpu", span_conditioning=True)
+    off = WaveformPicker(model, device="cpu", span_conditioning=False)
+    assert on.span_conditioning and not off.span_conditioning
+    kw = dict(overlap=1128, blinding=(200, 200), batch_size=8)  # stride 376 divides 1504
+    arrays = np.stack([g[1] for g in on._group_arrays(stream)])
+    c_on, c_off = on.annotate_array(arrays, **kw), off.annotate_array(arrays, **kw)
+    assert not np.array_equal(c_on, c_off)  # two branches, not one taken twice
+    np.testing.assert_allclose(c_on, c_off, atol=1e-5)
+    thr = [float(np.percentile(c_on[:, k], 99.0)) for k in range(3)]
+    tkw = dict(detection_threshold=thr[0], P_threshold=thr[1], S_threshold=thr[2], **kw)
+    out_on, out_off = on.classify(stream, **tkw), off.classify(stream, **tkw)
+    assert len(out_on.picks) > 0
+    assert [(p.trace_id, p.phase, p.peak_time.timestamp) for p in out_on.picks] == [
+        (p.trace_id, p.phase, p.peak_time.timestamp) for p in out_off.picks]
+    assert [(d.trace_id, d.start_time.timestamp, d.end_time.timestamp) for d in out_on.detections] == [
+        (d.trace_id, d.start_time.timestamp, d.end_time.timestamp) for d in out_off.detections]
+
+
+@pytest.mark.parametrize("env,want", [(None, True), ("0", False), ("1", True), (" 0 ", False),
+                                      ("off", True), ("", True)])
+def test_span_conditioning_env_resolves_as_in_jax(monkeypatch, env, want):
+    """``span_conditioning=None`` reads ``$VOLPICK_SPAN_COND`` as the JAX picker
+    does ("0" off, any other non-empty value on, unset on), once: a later
+    change of the environment moves neither picker; an argument wins."""
+    if env is None:
+        monkeypatch.delenv("VOLPICK_SPAN_COND", raising=False)
+    else:
+        monkeypatch.setenv("VOLPICK_SPAN_COND", env)
+    port = WaveformPicker(TorchDummyNet(), device="cpu")
+    jpick = JaxPicker(DummyNet(), {})
+    assert port.span_conditioning is want and jpick.span_conditioning is want
+    monkeypatch.setenv("VOLPICK_SPAN_COND", "1" if not want else "0")
+    assert port.span_conditioning is want and jpick.span_conditioning is want
+    for arg in (True, False):
+        assert WaveformPicker(TorchDummyNet(), device="cpu", span_conditioning=arg).span_conditioning is arg
+
+
+def test_env_off_takes_the_per_window_branch(small_eqt, monkeypatch):
+    """``VOLPICK_SPAN_COND=0`` gives exactly the curves of
+    ``span_conditioning=False``, not those of the span branch."""
+    _, _, model = small_eqt
+    arrays = np.random.default_rng(3).normal(size=(2, 3, 3000)).astype(np.float32)
+    kw = dict(overlap=1128, batch_size=8)
+    monkeypatch.setenv("VOLPICK_SPAN_COND", "0")
+    by_env = WaveformPicker(model, device="cpu")
+    monkeypatch.delenv("VOLPICK_SPAN_COND")
+    got = by_env.annotate_array(arrays, **kw)
+    np.testing.assert_array_equal(
+        got, WaveformPicker(model, device="cpu", span_conditioning=False).annotate_array(arrays, **kw))
+    assert not np.array_equal(got, WaveformPicker(model, device="cpu").annotate_array(arrays, **kw))
+
+
+def test_small_eqt_per_window_conditioning_matches_jax(small_eqt):
+    """With ``span_conditioning=False`` on both sides the port's curves match
+    the JAX picker's within the EQT forward pin, where the stride divides the
+    window (the case in which the switch decides the branch)."""
+    jmodel, jparams, model = small_eqt
+    stream = _eqt_stream(np.random.default_rng(11), 4100)
+    port = WaveformPicker(model, device="cpu", span_conditioning=False)
+    jpick = JaxPicker(jmodel, jparams, span_conditioning=False)
+    kw = dict(overlap=1128, blinding=(200, 200), batch_size=8)
+    arrays = np.stack([g[1] for g in port._group_arrays(stream)])
+    np.testing.assert_allclose(port.annotate_array(arrays, **kw), jpick.annotate_array(arrays, **kw),
+                               atol=EQT_ATOL)
+
+
 def test_cuda_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -5,7 +5,14 @@ what ``extract_triggers_batched`` runs on a CPU tensor) is held against
 ``volpick_tpu.ops.triggers.extract_triggers_batched(method="blocked")``,
 against the Pallas kernel ``trigger_extract_pallas`` in interpret mode, and
 against the numpy oracle. Tolerance: none; all five outputs must be equal.
+
+``trigger_extract_pieces`` (the kernel's way of counting: a row in pieces, per
+piece a summary, the emissions that are sure and one pending bit, slots from
+the resolved counts) is held to the twin and to the JAX package for every
+piece length, on noise and on rows built around piece boundaries.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,6 +113,125 @@ def test_fuzz_per_row_thresholds(seed):
             np.testing.assert_array_equal(got[1][i, :n], val[:n].astype(np.float32))
             np.testing.assert_array_equal(got[3][i, :n], [t[0] for t in trig[:n]])
             np.testing.assert_array_equal(got[4][i, :n], [t[1] for t in trig[:n]])
+
+
+@functools.lru_cache(maxsize=None)
+def _noise_case(w, k):
+    """Edge rows and smoothed-noise rows of width w with per-row thresholds,
+    the twin's picks and, where the blocked scan takes the shape, JAX's."""
+    rng = np.random.default_rng(1000 * w + k)
+    rows = [edge_curves(rng, w, k)]
+    for width in (1, min(5, w), min(40, w)):
+        x = np.stack([np.convolve(rng.random(w), np.ones(width) / width, mode="same")
+                      for _ in range(3)])
+        rows.append(((x - x.min()) / (x.max() - x.min() + 1e-9)).astype(np.float32))
+    prob = np.concatenate(rows)
+    b = prob.shape[0]
+    t1 = np.full(b, 0.5, np.float32)
+    t1[8:] = rng.uniform(0.3, 0.8, b - 8).astype(np.float32)
+    t2 = (t1 * np.float32(0.5)).astype(np.float32)
+    want = [a.numpy() for a in cuda_triggers.trigger_extract_reference(
+        torch.as_tensor(prob), torch.as_tensor(t1), torch.as_tensor(t2), k)]
+    theirs = None
+    if k <= w:  # the blocked scan's top_k needs k <= W
+        theirs = [np.asarray(a) for a in jax_extract(
+            jnp.asarray(prob), jnp.asarray(t1), jnp.asarray(t2), max_picks=k, method="blocked")]
+    return prob, t1, t2, want, theirs
+
+
+def _pieces(prob, t1, t2, k, piece):
+    return [a.numpy() for a in cuda_triggers.trigger_extract_pieces(
+        torch.as_tensor(prob), torch.as_tensor(t1), torch.as_tensor(t2), k, piece)]
+
+
+@pytest.mark.parametrize("k", [1, 4, 80])
+@pytest.mark.parametrize("w", [1, 7, 2100, 2600])
+@pytest.mark.parametrize("piece", [1, 7, 128, 1408, 10**6])
+def test_pieces_equal_twin_and_jax_on_noise(piece, w, k):
+    prob, t1, t2, want, theirs = _noise_case(w, k)
+    got = _pieces(prob, t1, t2, k, piece)
+    assert_same(got, want)
+    for g, a in zip(got, want):
+        assert g.dtype == a.dtype
+    if theirs is not None:
+        assert_same(got, theirs)
+
+
+TRAPS = ("pending_true", "pending_false", "spans_three_pieces", "ends_at_piece_last_sample",
+         "touches_row_end", "k_cut_inside_piece", "k_cut_at_piece_boundary", "exactly_k_picks",
+         "dense_alternating", "never_triggers", "one_run_never_crossing")
+
+
+def trap_row(name, p):
+    """(row of 5 p + 3 samples, K) for pieces of p >= 7 samples; thresholds
+    0.5 / 0.25."""
+    w = 5 * p + 3
+    r = np.full(w, 0.1, np.float32)
+    k = 4
+    if name in ("pending_true", "pending_false"):
+        # open at the start of piece 1, ends there without crossing t1 in it;
+        # a later pick must keep its slot either way
+        r[p - 3 : p + 3] = 0.4
+        if name == "pending_true":
+            r[p - 2] = 0.9
+        r[3 * p + 1 : 3 * p + 3] = 0.8
+    elif name == "spans_three_pieces":
+        r[p - 2 : 2 * p + 2] = 0.4
+        r[p + p // 2] = 0.9  # crosses t1 in the middle piece
+        r[2 * p] = 0.9  # a tie in the last piece: the first occurrence wins
+        r[4 * p : 4 * p + 2] = 0.7
+    elif name == "ends_at_piece_last_sample":
+        r[p + 2 : 2 * p] = 0.9
+        r[3 * p : 3 * p + 2] = 0.6  # and one that opens at a piece's first sample
+    elif name == "touches_row_end":
+        r[w - p - 2 :] = np.linspace(0.3, 0.95, p + 2)
+    elif name == "k_cut_inside_piece":
+        r[[p + 1, p + 3, p + 5, 3 * p]] = 0.9
+        k = 2
+    elif name in ("k_cut_at_piece_boundary", "exactly_k_picks"):
+        # the second pick is the last run end of piece 1, the third the first of piece 2
+        r[[p + 1, 2 * p - 2, 2 * p - 1, 2 * p + 1]] = 0.9
+        k = 2 if name == "k_cut_at_piece_boundary" else 3
+    elif name == "dense_alternating":
+        r = np.where(np.arange(w) % 2 == 0, 0.9, 0.0).astype(np.float32)
+        k = 80
+    elif name == "never_triggers":
+        r[:] = 0.2
+    elif name == "one_run_never_crossing":
+        r[:] = 0.3  # pending in every piece, resolved false in each
+    return r, k
+
+
+@pytest.mark.parametrize("name", TRAPS)
+@pytest.mark.parametrize("piece", [7, 128, 1408])
+def test_pieces_equal_twin_and_jax_on_trap_rows(piece, name):
+    row, k = trap_row(name, piece)
+    prob = row[None]
+    t1, t2 = np.float32([0.5]), np.float32([0.25])
+    want = [a.numpy() for a in cuda_triggers.trigger_extract_reference(
+        torch.as_tensor(prob), torch.as_tensor(t1), torch.as_tensor(t2), k)]
+    for length in (piece, piece - 1, 3 * piece):  # the boundaries where the row was built, and off them
+        assert_same(_pieces(prob, t1, t2, k, length), want)
+    if k <= row.size:
+        assert_same(want, jax_extract(jnp.asarray(prob), jnp.asarray(t1), jnp.asarray(t2),
+                                      max_picks=k, method="blocked"))
+    # what the rows are for
+    n = int(want[2].sum())
+    expect = {"pending_true": 2, "pending_false": 1, "spans_three_pieces": 2,
+              "ends_at_piece_last_sample": 2, "touches_row_end": 1, "k_cut_inside_piece": 2,
+              "k_cut_at_piece_boundary": 2, "exactly_k_picks": 3, "dense_alternating": min(80, (row.size + 1) // 2),
+              "never_triggers": 0, "one_run_never_crossing": 0}[name]
+    assert n == expect
+    if name == "spans_three_pieces":
+        assert want[0][0, 0] == piece + piece // 2 and want[4][0, 0] == 2 * piece + 1
+
+
+def test_pieces_rejects_bad_input():
+    prob = torch.rand(3, 50)
+    with pytest.raises(ValueError):
+        cuda_triggers.trigger_extract_pieces(prob, torch.ones(3), torch.ones(3), 4, 0)
+    with pytest.raises(TypeError):
+        cuda_triggers.trigger_extract_pieces(prob.double(), torch.ones(3), torch.ones(3), 4, 8)
 
 
 def test_scalar_threshold_and_cpu_dispatch(rng):

@@ -1,8 +1,7 @@
 // The segmented-scan monoid of the two-threshold trigger automaton and the
 // building blocks shared by trigger_extract.cu (scan + pick emission) and
-// trigger_scan.cu (scan state at every position): the per-thread segment fold
-// and the shared-memory block scan that trigger_extract.cu uses, and the
-// blocks of a scan that is split over warps and moves 16 bytes a thread:
+// trigger_scan.cu (scan state at every position), both split over warps and
+// moving 16 bytes a thread: load_quad / load_prev (aligned quads of a row),
 // fold_quad (four neighbouring samples), warp_scan (shuffles on the four
 // fields) and warp_prefix (the state carried into a lane of a step, and from
 // step to step). `combine` is selects and compares only, so it is
@@ -23,7 +22,7 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kStep = 128;  // samples a warp covers with one 16-byte load a lane: 32 x 4
 constexpr int kNone = 2147483647;  // INT32_MAX: no > t1 sample seen in the run
 
 struct State {
@@ -51,34 +50,6 @@ __device__ __forceinline__ State combine(const State& a, const State& c) {
   r.m = c.flag ? c.m : (use_c ? c.m : a.m);
   r.am = c.flag ? c.am : (use_c ? c.am : a.am);
   return r;
-}
-
-// Folds x[lo, hi) into `st` sample by sample. each(i, st) sees the state
-// after every sample i; emit(i, st) is called at every run end whose run has
-// crossed t1 and stops the fold by returning false.
-template <typename Each, typename Emit>
-__device__ __forceinline__ State fold(const float* __restrict__ x, int lo, int hi, int w,
-                                      float t1, float t2, float none, State st, Each each,
-                                      Emit emit) {
-  bool prev2 = lo > 0 && x[lo - 1] > t2;
-  bool a2 = lo < hi && x[lo] > t2;
-  for (int i = lo; i < hi; ++i) {
-    const float v = x[i];
-    State e;
-    e.flag = a2 && !prev2;
-    e.on = (a2 && v > t1) ? i : kNone;
-    e.m = a2 ? v : none;
-    e.am = i;
-    st = combine(st, e);
-    each(i, st);
-    const bool next2 = i + 1 < w && x[i + 1] > t2;
-    if (a2 && !next2 && st.on != kNone) {
-      if (!emit(i, st)) break;
-    }
-    prev2 = a2;
-    a2 = next2;
-  }
-  return st;
 }
 
 // The state of sample i alone: value v, `prev2` says whether sample i - 1
@@ -159,22 +130,22 @@ __device__ __forceinline__ State warp_prefix(const State& own, State& carry, flo
   return before;
 }
 
-// Block-wide inclusive scan; on return sh[t] holds thread t's inclusive state.
-__device__ State scan_states(State s, State* sh, float none) {
-  const int tid = threadIdx.x;
-  sh[tid] = s;
-  __syncthreads();
-  for (int d = 1; d < blockDim.x; d <<= 1) {
-    State left = identity(none);
-    if (tid >= d) left = sh[tid - d];
-    __syncthreads();
-    if (tid >= d) {
-      s = combine(left, s);
-      sh[tid] = s;
-    }
-    __syncthreads();
+// Four neighbouring samples from i0 on, zeros outside [0, w); one 16-byte
+// load where `vec` and the quad lies inside the row.
+__device__ __forceinline__ void load_quad(const float* __restrict__ x, int i0, int w, bool vec,
+                                          float (&v)[4]) {
+  if (vec && i0 >= 0 && i0 + 4 <= w) {
+    const float4 f = *reinterpret_cast<const float4*>(x + i0);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = (i0 + j >= 0 && i0 + j < w) ? x[i0 + j] : 0.0f;
   }
-  return s;
+}
+
+// Sample i0 - 1, where the row has one.
+__device__ __forceinline__ float load_prev(const float* __restrict__ x, int i0, int w) {
+  return (i0 > 0 && i0 <= w) ? x[i0 - 1] : 0.0f;
 }
 
 }  // namespace

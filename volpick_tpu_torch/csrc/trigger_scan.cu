@@ -60,26 +60,7 @@ namespace {
 constexpr float kOutside = -3.4e38f;  // max of a stretch outside any run
 constexpr int kScanThreads = 256;
 constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kStep = 128;  // samples a warp scans at a time: 32 lanes x 4
-constexpr int kBatch = 4;   // launch 1: quads a lane loads before it folds them
-
-// Four neighbouring samples from i0 on, zeros outside [0, w); one 16-byte
-// load where `vec` and the quad lies inside the row.
-__device__ __forceinline__ void load_quad(const float* __restrict__ x, int i0, int w, bool vec,
-                                          float (&v)[4]) {
-  if (vec && i0 >= 0 && i0 + 4 <= w) {
-    const float4 f = *reinterpret_cast<const float4*>(x + i0);
-    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = (i0 + j >= 0 && i0 + j < w) ? x[i0 + j] : 0.0f;
-  }
-}
-
-// Sample i0 - 1, where the row has one.
-__device__ __forceinline__ float load_prev(const float* __restrict__ x, int i0, int w) {
-  return (i0 > 0 && i0 <= w) ? x[i0 - 1] : 0.0f;
-}
+constexpr int kBatch = 4;  // launch 1: quads a lane loads before it folds them
 
 // Launch 1: warp `wid` of B * (n_pieces - 1) folds piece wid % (n_pieces - 1)
 // of row wid / (n_pieces - 1) into summaries[wid]. `piece` is a multiple of

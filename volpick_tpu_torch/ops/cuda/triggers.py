@@ -7,7 +7,10 @@ PyTorch twins.
 emission in one kernel); its twin is the ``"shift"`` scan path of
 ``volpick_tpu/ops/triggers.py::extract_triggers_batched``. Both return
 ``(peak_idx, peak_val, valid, onset, offset)``, each (B, K), and must agree
-exactly. ``trigger_extract_blocked`` is the ``"blocked"`` scan path of the same
+exactly. The kernel splits a row as ``trigger_scan`` does and gives each pick
+its slot from counts that every piece takes alone;
+``trigger_extract_pieces`` is that counting in plain PyTorch, a test
+instrument. ``trigger_extract_blocked`` is the ``"blocked"`` scan path of the same
 function, in plain PyTorch on any device: scan inside blocks, scan of the
 block summaries, one combine with the exclusive prefix. That is the two-level
 structure of the ``trigger_scan`` kernel (a piece a warp, piece summaries, the
@@ -46,7 +49,14 @@ SCAN_NEG = -3.4e38
 SCAN_STEP = 128
 SCAN_TARGET_WARPS = 2112
 
-launches = 0  # kernel launches made by trigger_extract on CUDA tensors
+# the trigger_extract kernel: rows of several pieces go in one cooperative
+# launch where the card holds every CTA of it at once (with scan_plan's split
+# an H100 always does), else in two plain launches; False takes the two
+# launches everywhere, which is how the tests and scripts/k1_k4_designs.py
+# reach them on an H100
+EXTRACT_COOPERATIVE = True
+
+launches = 0  # calls of trigger_extract that went to its kernel (one or two launches each)
 scan_launches = 0  # calls of trigger_scan that went to its kernel (one or two launches each)
 
 Picks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -196,6 +206,83 @@ def trigger_extract_blocked(
     return emit_picks(prob, t2, _scan_states(prob, t1, t2, float("-inf"), block), max_picks)
 
 
+def _in_pieces(arr: torch.Tensor, piece: int, fill) -> torch.Tensor:
+    """(B, W) → (B, P, piece), the tail of the last piece filled with `fill`."""
+    b, w = arr.shape
+    n = -(-w // piece)
+    if n * piece != w:
+        arr = torch.cat([arr, arr.new_full((b, n * piece - w), fill)], dim=1)
+    return arr.reshape(b, n, piece)
+
+
+def trigger_extract_pieces(
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int, piece: int
+) -> Picks:
+    """``trigger_extract_reference`` computed the way the ``trigger_extract``
+    kernel computes it, in plain PyTorch on any device: a test instrument that
+    holds the kernel's counting to the flat scan where the kernel cannot run.
+    No picker path and no ``method=`` name reaches it.
+
+    A row is cut into pieces of ``piece`` samples. Each piece is folded alone,
+    from the identity, into a summary and two counts. A run end emits when its
+    run has crossed t1. Seen from inside the piece that is decided for every
+    run end but one: a run that was open when the piece began and has not
+    crossed t1 inside it emits only if it crossed t1 earlier, which the state
+    carried into the piece says. So a piece counts ``sure`` (run ends that
+    emit whatever the carry) and holds one ``pending`` bit (that one run end).
+    The exclusive scan of the summaries gives each piece its carry, the carry
+    resolves the bit, the running sum of ``sure + resolved`` gives each piece
+    the slot of its first pick, and each piece writes its picks from there,
+    those below ``max_picks``. There is no search over the row for the
+    earliest picks."""
+    _check(prob, t1, t2, max_picks)
+    if piece < 1:
+        raise ValueError(f"piece must be >= 1, got {piece}")
+    b, w = prob.shape
+    neg = float("-inf")
+    above2 = prob > t2[:, None]
+    above1 = prob > t1[:, None]
+    prev2 = torch.zeros_like(above2)
+    prev2[:, 1:] = above2[:, :-1]
+    pos = torch.arange(w, dtype=torch.int32, device=prob.device).expand(b, w)
+    elements = (
+        above2 & ~prev2,
+        torch.where(above1 & above2, pos, torch.full_like(pos, _I32_MAX)),
+        torch.where(above2, prob, torch.full_like(prob, neg)),
+        pos,
+    )
+    # 1. every piece alone: the fold from the identity, its counts, its summary
+    local = _scan(tuple(_in_pieces(arr, piece, fill)
+                        for arr, fill in zip(elements, (False, _I32_MAX, neg, 0))), neg)
+    ends = _in_pieces(_run_ends(prob, t2), piece, False)
+    crossed = local[1] < _I32_MAX
+    sure = (ends & crossed).sum(dim=-1)
+    pending = (ends & ~local[0] & ~crossed).any(dim=-1)
+    # 2. the state before each piece, which resolves its pending bit
+    carry = _shift_right(_scan(tuple(arr[..., -1] for arr in local), neg), 1, neg)
+    count = sure + (pending & (carry[1] < _I32_MAX))
+    first = torch.cumsum(count, dim=1) - count
+    # 3. each piece from its carry: run ends whose run crossed t1, slots from `first`
+    _, onset, run_max, run_argmax = _combine(tuple(arr[..., None] for arr in carry), local)
+    emit = ends & (onset < _I32_MAX)
+    slot = first[..., None] + torch.cumsum(emit, dim=-1) - 1
+    keep = emit & (slot < max_picks)
+    rows = torch.arange(b, device=prob.device)[:, None, None].expand_as(keep)[keep]
+    slots = slot[keep]
+    opts = dict(device=prob.device)
+    peak_idx = torch.full((b, max_picks), -1, dtype=torch.int32, **opts)
+    peak_val = torch.zeros((b, max_picks), dtype=torch.float32, **opts)
+    valid = torch.zeros((b, max_picks), dtype=torch.bool, **opts)
+    on_idx = torch.full((b, max_picks), -1, dtype=torch.int32, **opts)
+    off_idx = torch.full((b, max_picks), -1, dtype=torch.int32, **opts)
+    peak_idx[rows, slots] = run_argmax[keep]
+    peak_val[rows, slots] = run_max[keep]
+    valid[rows, slots] = True
+    on_idx[rows, slots] = onset[keep]
+    off_idx[rows, slots] = _in_pieces(pos, piece, 0)[keep]
+    return peak_idx, peak_val, valid, on_idx, off_idx
+
+
 def trigger_scan_reference(
     prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, block: int = 0
 ) -> Scan:
@@ -206,7 +293,8 @@ def trigger_scan_reference(
 
 
 def scan_plan(b: int, w: int) -> Tuple[int, int]:
-    """``(piece, n_pieces)``: how the ``trigger_scan`` kernel splits a row of W
+    """``(piece, n_pieces)``: how the ``trigger_scan`` and ``trigger_extract``
+    kernels split a row of W
     samples over warps when there are B rows. The piece is a whole number of
     steps, as few pieces a row as bring the launch to ``SCAN_TARGET_WARPS``
     warps, and one piece a row where the rows alone are that many. A row whose
@@ -235,13 +323,31 @@ def _check(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: in
         raise ValueError(f"max_picks must be >= 1, got {max_picks}")
 
 
+_summary_scratch: dict = {}  # (device index, stream) -> (n, 4) int32 tensor
+
+
+def _summaries(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Scratch for ``trigger_extract``'s piece summaries, 16 bytes each: kept
+    from call to call and grown when a call needs more, one per stream (calls
+    on one stream run in order, so the next call's first kernel starts after
+    this call's last has read them)."""
+    key = (device.index, stream)
+    buf = _summary_scratch.get(key)
+    if buf is None or buf.shape[0] < n:
+        buf = _summary_scratch[key] = torch.empty((n, 4), dtype=torch.int32, device=device)
+    return buf
+
+
 def trigger_extract(
     prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int
 ) -> Picks:
     """Trigger extraction of (B, W) curves with per-row thresholds t1/t2 (B,).
 
-    A CPU tensor goes to ``trigger_extract_reference``; a CUDA tensor
-    launches the kernel (one CTA per row) or raises."""
+    A CPU tensor goes to ``trigger_extract_reference``; a CUDA tensor goes to
+    the kernel (``scan_plan(B, W)`` pieces a row, one warp each; where a row
+    has more than one piece, one cooperative launch, or two plain ones, the
+    first for the piece summaries and counts: ``EXTRACT_COOPERATIVE``) or
+    raises. ``launches`` counts one a call."""
     global launches
     _check(prob, t1, t2, max_picks)
     if prob.device.type == "cpu":
@@ -254,7 +360,7 @@ def trigger_extract(
     b, w = prob.shape
     fn = _build.function(
         "trigger_extract_f32",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6,
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7,
     )
     opts = dict(device=prob.device)
     peak_idx = torch.empty((b, max_picks), dtype=torch.int32, **opts)
@@ -264,11 +370,13 @@ def trigger_extract(
     offset = torch.empty((b, max_picks), dtype=torch.int32, **opts)
     if b == 0:
         return peak_idx, peak_val, valid, onset, offset
+    piece, n_pieces = scan_plan(b, w)
+    stream = torch.cuda.current_stream(prob.device).cuda_stream
     err = fn(
-        prob.data_ptr(), t1.data_ptr(), t2.data_ptr(), b, w, max_picks,
+        prob.data_ptr(), t1.data_ptr(), t2.data_ptr(), b, w, max_picks, piece, n_pieces,
+        int(EXTRACT_COOPERATIVE), _summaries(prob.device, stream, b * n_pieces).data_ptr(),
         peak_idx.data_ptr(), peak_val.data_ptr(), valid.data_ptr(),
-        onset.data_ptr(), offset.data_ptr(),
-        torch.cuda.current_stream(prob.device).cuda_stream,
+        onset.data_ptr(), offset.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"trigger_extract_f32 launch failed: cudaError {err}")

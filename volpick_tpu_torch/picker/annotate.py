@@ -30,6 +30,7 @@ after), so results stay comparable with the CPU and the JAX reference.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,10 +67,20 @@ class WaveformPicker:
     ``device="cpu"`` to ask for the CPU. The model is moved to the device
     and put in eval mode. ``use_pallas=True`` (the JAX picker's
     name for the switch) conditions framed windows with the kernel of
-    ``ops/cuda/conditioning.py`` instead of conditioning each step's span."""
+    ``ops/cuda/conditioning.py`` instead of conditioning each step's span.
+    ``span_conditioning`` (the JAX picker's switch too) lets a step condition
+    its windows from its span of the stream when the stride divides the
+    window; ``False`` conditions the framed windows one by one. ``None`` reads
+    ``$VOLPICK_SPAN_COND`` (``"0"`` is off, any other value on, unset on),
+    once, here."""
 
     def __init__(
-        self, model, device=None, detrend: Optional[bool] = None, use_pallas: bool = False
+        self,
+        model,
+        device=None,
+        detrend: Optional[bool] = None,
+        use_pallas: bool = False,
+        span_conditioning: Optional[bool] = None,
     ):
         device = resolve_device(device, "WaveformPicker")
         self.device = device
@@ -79,6 +90,12 @@ class WaveformPicker:
         # name for name: VolEQTransformer windows are demeaned.
         self.detrend = detrend if detrend is not None else model.name == "EQTransformer"
         self.use_pallas = use_pallas
+        # frozen at construction like the other switches, so a later change of
+        # the environment does not move a running picker to the other branch
+        if span_conditioning is None:
+            env = os.environ.get("VOLPICK_SPAN_COND", "").strip()
+            span_conditioning = env != "0" if env else True
+        self.span_conditioning = bool(span_conditioning)
         # freeze an env-selected model route (TPUPickNet's attn, the EQT
         # family's fused) now, so a later change of the environment does not
         # switch it mid-run
@@ -188,9 +205,10 @@ class WaveformPicker:
         local_len = (wpc + m - 1) * stride
         acc_len = max((n_steps * wpc + m - 1) * stride, total)
         # per-window mean/slope from stride-block sums of the raw span, when
-        # the stride divides the window (EQT 6000/500); not under use_pallas,
-        # which conditions the framed windows in the kernel
-        span_cond = window % stride == 0 and not self.use_pallas
+        # the stride divides the window (EQT 6000/500) and span conditioning
+        # is on; not under use_pallas, which conditions the framed windows in
+        # the kernel
+        span_cond = self.span_conditioning and window % stride == 0 and not self.use_pallas
 
         acc = torch.zeros((s, k_ch, acc_len), dtype=torch.float32, device=data.device)
         for i in range(n_steps):
