@@ -73,7 +73,27 @@
    read after): conditioned windows through the full-width model's encoder,
    then the kernel against the model's seven res-CNN modules (BatchNorm
    statistics set away from (0, 1) from the seed). K6 is wired into no
-   forward, as in the JAX package;
+   forward, as in the JAX package; its time by CUDA events and by its row in
+   torch.profiler, with its launch plan (windows a CTA, CTAs, shared memory);
+4c. streams 2 stations of the bench stream through StreamingPicker on a
+   full-width EQTransformer: 10-second packets a component, overlap 5500,
+   blinding (500, 500), a pass every 30 s of new data, then flush(). The
+   streamed picks must be those of offline classify() on the same records
+   (trace id, phase, peak sample), each once, and offline's picks must be the
+   numpy oracle's trigger rule on the card's own curves; every pass launches
+   K1 once and K2 4 times a forward (counts set to 0 before, read after).
+   Seeded random weights give nearly flat curves (one trigger run a row), on
+   which a streamed pick means nothing, so the heads' logits are stretched
+   about their median first (a gain and a bias on the four output convs, from
+   the seed's own curves): isolated peaks, a few dozen picks a station;
+4d. holds EQTransformer's other routes to the default one on 1 station x 5 min
+   with the same weights: fused=False, "lstm", "polyup", "grouped",
+   "blockdiag+polyup" (none of which may launch K2) and
+   "plstm+bandattn+grouped+polyup" (K2 4 times a forward): curves within 1e-4
+   with the seeded weights as they are, and the same picks with 4c's stretched
+   heads, at thresholds that stay clear of every curve sample by more than
+   the routes differ (same triggers; the same peak sample, or one whose value
+   the two routes cannot tell apart);
 5. times classify_arrays on each (median of 5, windows/s; the window count
    includes the flush window) and sums its kernel time in one call under
    torch.profiler (with the call's aten::copy_ and aten::mul launches, which
@@ -104,6 +124,7 @@ MHA_B, MHA_D, MHA_T, MHA_H = 128, 128, 94, 4
 COND_N, COND_C, COND_W = 232, 3, 6000
 ATT_B, ATT_C, ATT_T, ATT_U = 232, 16, 47, 32
 RES_B, RES_C, RES_T = 232, 64, 47
+STREAM_STATIONS, PACKET, HOP_S = 2, 1000, 30.0  # 10-second packets at 100 Hz, a pass every 30 s
 LSTM_TOL, MHA_TOL, CURVE_TOL = 1e-5, 1e-5, 1e-4
 COND_TOL, ATT_TOL, RES_TOL = 2e-5, 1e-5, 3e-4
 
@@ -246,9 +267,9 @@ def main() -> None:
     from volpick_tpu_torch.ops.cuda import rescnn as cuda_rescnn
     from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
     from volpick_tpu_torch.ops.signal import condition_windows_from_span
-    from volpick_tpu_torch.ops.triggers import extract_triggers_batched
+    from volpick_tpu_torch.ops.triggers import extract_triggers_batched, trigger_onset_numpy
     from volpick_tpu_torch.ops.windows import window_starts
-    from volpick_tpu_torch.picker import UTC, Stream, Trace, WaveformPicker
+    from volpick_tpu_torch.picker import UTC, Stream, StreamingPicker, Trace, WaveformPicker
     from volpick_tpu_torch.picker.stage_times import (
         SR, STATIONS, bench_stream_array, cuda_ms, profiled, self_device_us, smi)
 
@@ -812,17 +833,195 @@ def main() -> None:
               f"(tol {RES_TOL})")
         if not max(res_err, res_twin_err) <= RES_TOL:
             fail(f"res_cnn_stack max abs err {max(res_err, res_twin_err)} > {RES_TOL}")
-        res_ms = cuda_ms(lambda: cuda_rescnn.res_cnn_stack(enc, packed))
+        res_ms = cuda_ms(lambda: cuda_rescnn.res_cnn_stack(enc, packed), iters=100)
+        _, _, events = profiled(lambda: [cuda_rescnn.res_cnn_stack(enc, packed) for _ in range(20)])
+        res_kernel_ms = sum(self_device_us(e) for e in events if "rescnn_kernel" in e.key) / 2e4
         res_plain_ms = cuda_ms(lambda: cuda_rescnn.res_cnn_stack_reference(enc, packed))
         res_mod_ms = cuda_ms(lambda: res_modules(enc))
     n_bct = RES_B * RES_C * RES_T
     n_blk = packed["w1"].shape[0]
     res_bound = bound(2 * nbytes(enc) + nbytes(*packed.values()),
                       flops=n_bct * n_blk * (2 * 3 * RES_C * 2 + 7))
-    print(f"K6 time on {card}: kernel {res_ms:.4f} ms, twin {res_plain_ms:.4f} ms, the model's "
-          f"seven modules {res_mod_ms:.4f} ms, bound {res_bound[0]:.4f} ms ({res_bound[1]}), "
-          "no library call computes it")
+    res_plan = cuda_rescnn.rescnn_plan(
+        RES_B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"K6 time on {card} ({res_plan[0]} windows a CTA, {res_plan[1]} CTAs, {res_plan[2]} bytes of "
+          f"shared memory each): kernel {res_ms:.4f} ms by CUDA events around 100 calls (the gaps "
+          f"between launches included), {res_kernel_ms:.4f} ms its row under torch.profiler, twin "
+          f"{res_plain_ms:.4f} ms, the model's seven modules {res_mod_ms:.4f} ms, bound "
+          f"{res_bound[0]:.4f} ms ({res_bound[1]}; the kernel {res_ms / res_bound[0]:.2f}x by events, "
+          f"{res_kernel_ms / res_bound[0]:.2f}x by its row), no library call computes it")
     del model
+    torch.cuda.empty_cache()
+
+    # ---- 4c. the streaming path: 2 stations in 10-second packets a component
+    model = load_model("eqtransformer", seed=0, device=dev)
+    picker = WaveformPicker(model, device=dev)
+    kw = dict(overlap=5500, blinding=(500, 500), batch_size=256)
+    sdata = np.ascontiguousarray(data[:STREAM_STATIONS])
+    flat_curves = picker.annotate_array(sdata, **kw)
+    seeded_state = {k_: v_.clone() for k_, v_ in model.state_dict().items()}
+    seeded_cut = picker.annotate_array(cut, **kw)
+    # stretch every head's logits about their median: b' = a (b - m) - 5, w' = a w
+    heads = [model.conv_d] + list(model.pick_convs)
+    with torch.no_grad():
+        for ki, head in enumerate(heads):
+            # the samples every window blinds (the first and last 500) are 0: left out
+            pr = flat_curves[:, ki, 500:-500].astype(np.float64)
+            lg = np.log(pr / (1 - pr))
+            lo_, mid_, hi_ = np.percentile(lg, [16, 50, 84])
+            a = 1.5 / float((hi_ - lo_) / 2)
+            head.bias.copy_((head.bias - float(mid_)) * a - 5.0)
+            head.weight.mul_(a)
+    curves = picker.annotate_array(sdata, **kw)
+    channels = picker._prob_channels()
+    thr = {lab: float(np.percentile(curves[:, i], 99.9)) for i, lab in enumerate(channels)}
+    print(f"streaming: curves of the seeded heads, percentiles 1 / 50 / 99.9 "
+          f"{[[round(float(v), 4) for v in np.percentile(flat_curves[:, i, 500:-500], [1, 50, 99.9])] for i in range(3)]}"
+          f"; with the heads stretched "
+          f"{[[round(float(v), 4) for v in np.percentile(curves[:, i, 500:-500], [1, 50, 99.9])] for i in range(3)]}"
+          f"; thresholds {thr}")
+    sstream = Stream([tr for tr in stream if tr.stats.station in ("S00", "S01")])
+    offline = picker.classify(sstream, P_threshold=thr["P"], S_threshold=thr["S"],
+                              detection_threshold=thr["Detection"], **kw)
+    sample_of = lambda p: (p.trace_id, p.phase, int(round((p.peak_time.timestamp - t_start.timestamp) * SR)))  # noqa: E731
+    want_picks = sorted(sample_of(p) for p in offline.picks)
+    # the oracle's trigger rule on the card's own curves gives offline's picks
+    oracle_picks = []
+    for si in range(STREAM_STATIONS):
+        for lab in ("P", "S"):
+            row = curves[si, channels.index(lab)]
+            t1_ = np.float32(thr[lab])
+            for on_, off_ in trigger_onset_numpy(row, t1_, t1_ / np.float32(2.0)):
+                oracle_picks.append((f"XV.S{si:02d}.", lab, on_ + int(np.argmax(row[on_ : off_ + 1]))))
+    if sorted(oracle_picks) != want_picks or len(want_picks) < 4:
+        fail(f"streaming: offline classify gives {len(want_picks)} picks, the oracle's trigger rule on "
+             f"the same curves {len(oracle_picks)}; they must be equal and more than a handful")
+    thresholds = dict(thr, Detection_rg=thr["Detection"], Detection_lp=thr["Detection"], N=2.0)
+    sp = StreamingPicker(picker, thresholds=thresholds, hop_seconds=HOP_S, **kw)
+    pass_ms, forwards = [], [0]
+    inner = picker.classify_arrays
+
+    def timed_pass(*a_, **k_):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        out_ = inner(*a_, **k_)
+        pass_ms.append((time.perf_counter() - t0_) * 1e3)
+        return out_
+
+    picker.classify_arrays = timed_pass
+    hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    streamed, n_packets, per_call = [], 0, []
+    zero_counts()
+    t_feed = time.perf_counter()
+    for lo in range(0, sdata.shape[-1], PACKET):
+        for si in range(STREAM_STATIONS):
+            for ci, comp in enumerate("ZNE"):
+                got_ = sp.ingest(Trace(sdata[si, ci, lo : lo + PACKET], dict(
+                    network="XV", station=f"S{si:02d}", channel=f"HH{comp}", sampling_rate=SR,
+                    starttime=t_start + lo / SR)))
+                n_packets += 1
+                per_call.append(len(got_))
+                streamed += list(got_)
+    streamed += list(sp.flush())
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t_feed
+    by_path["eqtransformer/streaming"] = read_counts()
+    hook.remove()
+    picker.classify_arrays = inner
+    n_pass, n_fwd = len(pass_ms), forwards[0]
+    got_picks = sorted(sample_of(p) for p in streamed)
+    print(f"streaming: {n_packets} packets of {PACKET} samples, {n_pass} passes ({n_fwd} forwards), "
+          f"{len(streamed)} picks streamed ({sum(1 for n_ in per_call if n_)} ingest calls released some), "
+          f"offline classify {len(want_picks)}; launches {by_path['eqtransformer/streaming']}")
+    if len(got_picks) != len(set(got_picks)):
+        fail("streaming: a pick was released twice")
+    if got_picks != want_picks:
+        fail(f"streaming: streamed picks differ from offline classify: only streamed "
+             f"{sorted(set(got_picks) - set(want_picks))}, only offline {sorted(set(want_picks) - set(got_picks))}")
+    want = dict.fromkeys(counters, 0)
+    want.update(trigger_extract=n_pass, lstm_multi=4 * n_fwd)
+    if n_pass < 2 * STREAM_STATIONS or n_fwd < n_pass or by_path["eqtransformer/streaming"] != want:
+        fail(f"streaming: launches {by_path['eqtransformer/streaming']}, want {want}")
+    stream_rate, stream_pass_ms = n_packets / feed_s, float(np.median(pass_ms))
+    print(f"streaming on {card}: {n_packets} packets in {feed_s:.2f} s = {stream_rate:.1f} packets/s "
+          f"(host clock, flush included); a pass (one classify_arrays of one station's buffer) median "
+          f"{stream_pass_ms:.2f} ms, min {min(pass_ms):.2f}, max {max(pass_ms):.2f}")
+
+    # ---- 4d. the other routes against the default one on 1 station x 5 min:
+    # curves with the seeded weights as they are (the stretched heads multiply
+    # a difference between two routes by the heads' gain, a few hundred), picks
+    # with the stretched heads (isolated peaks) at thresholds that no sample of
+    # any route's curves comes near
+    base_c = picker.annotate_array(cut, **kw)
+
+    def clear_threshold(values):
+        """(threshold, clearance): of 4000 candidates near the top of the curves the
+        one that it and its half keep the farthest from every sample."""
+        vals = np.sort(values.ravel().astype(np.float64))
+        best = (0.0, -1.0)
+        for cand in np.quantile(vals, np.linspace(0.97, 0.9995, 4000)):
+            cand = float(np.float32(cand))
+            gap = min(np.abs(vals[np.clip(np.searchsorted(vals, t_) + np.array([-1, 0]), 0, vals.size - 1)] - t_).min()
+                      for t_ in (cand, float(np.float32(cand) / np.float32(2.0))))
+            if gap > best[1]:
+                best = (cand, float(gap))
+        return best
+
+    state = model.state_dict()
+    route_errs, route_pickers, route_curves = {}, {}, {}
+    for route in (False, "lstm", "polyup", "grouped", "blockdiag+polyup", "plstm+bandattn+grouped+polyup"):
+        other = load_model("eqtransformer", seed=0, device=dev, fused=route)
+        rpicker = route_pickers[route] = WaveformPicker(other, device=dev)
+        other.load_state_dict(seeded_state, strict=True)
+        forwards[0] = 0
+        hook = other.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        zero_counts()
+        err = route_errs[str(route)] = float(np.abs(rpicker.annotate_array(cut, **kw) - seeded_cut).max())
+        other.load_state_dict(state, strict=True)
+        route_curves[route] = rpicker.annotate_array(cut, **kw)
+        torch.cuda.synchronize()
+        k2 = read_counts()["lstm_multi"]
+        hook.remove()
+        want_k2 = 4 * forwards[0] if "plstm" in str(route) else 0
+        print(f"route fused={route!r} ({other.fused!r}): max abs curve diff to the default route "
+              f"{err:.3e} (tol {CURVE_TOL}; {float(np.abs(route_curves[route] - base_c).max()):.3e} with "
+              f"the heads stretched), K2 launches {k2} in {forwards[0]} forwards")
+        if not err <= CURVE_TOL:
+            fail(f"route {route!r}: curves differ from the default route by {err}")
+        if k2 != want_k2:
+            fail(f"route {route!r}: {k2} launches of K2, want {want_k2}")
+    # thresholds that every route's curves keep clear of, so that a sample lies
+    # on the same side of a threshold and of its half on every route
+    every = np.stack([base_c] + list(route_curves.values()))
+    cleared = {lab: clear_threshold(every[:, :, i]) for i, lab in enumerate(channels)}
+    rthr = {lab: t_ for lab, (t_, _) in cleared.items()}
+    print(f"routes: thresholds {rthr}, clear of every sample of every route's curves by "
+          f"{ {lab: float(f'{gap:.2e}') for lab, (_, gap) in cleared.items()} }")
+    res_d = picker.classify_arrays(cut, rthr, **kw)
+    for route, rpicker in route_pickers.items():
+        res_r = rpicker.classify_arrays(cut, rthr, **kw)
+        n_picks, n_moved = sum(int(v[2].sum()) for v in res_r.values()), 0
+        for ki, lab in enumerate(channels):
+            row, other_row = base_c[0, ki], route_curves[route][0, ki]
+            for t_ in (np.float32(rthr[lab]), np.float32(rthr[lab]) / np.float32(2.0)):
+                if not np.array_equal(row > t_, other_row > t_):
+                    fail(f"route {route!r}: a sample of {lab} lies across a threshold from the default "
+                         "route's: the picks cannot be compared")
+            (pk_r, _, ok_r, on_r, off_r), (pk_d, _, ok_d, on_d, off_d) = res_r[lab], res_d[lab]
+            if not (np.array_equal(ok_r, ok_d) and np.array_equal(on_r, on_d) and np.array_equal(off_r, off_d)):
+                fail(f"route {route!r}: {lab} triggers differ from the default route's")
+            # the same peak, or two samples whose values the two routes cannot tell apart
+            moved = ok_d & (pk_r != pk_d)
+            n_moved += int(moved.sum())
+            if (np.abs(row[pk_r[moved]] - row[pk_d[moved]]) > 2 * np.abs(row - other_row).max()).any():
+                fail(f"route {route!r}: {lab} peaks differ from the default route's")
+        print(f"route fused={route!r}: the default route's {n_picks} picks and detections "
+              f"({n_moved} peaks on another sample of the same value)")
+        if n_picks == 0:
+            fail(f"route {route!r}: no picks to compare")
+    del route_pickers
+    del model, picker
+    torch.cuda.empty_cache()
 
     # TPUPickNet's attention routes in turns on one model and picker
     label, arch, _, _, _, overlap, blinding, batch = PATHS[3]
@@ -908,13 +1107,20 @@ def main() -> None:
               plain_ms_xqk=att["addattn"][2], bound_ms_xqk=att_bound_xqk[0],
               bound_by_xqk=att_bound_xqk[1]),
         # wired into no forward (as in the JAX package): launches are those of phase 4b
+        # ms by CUDA events around 100 calls; kernel_ms its row under the profiler
         entry("rescnn", "rescnn.cu", "rescnn.py:112", "eqtransformer/res_cnn section",
-              max(res_err, res_twin_err), res_ms, res_plain_ms, res_bound, modules_ms=res_mod_ms),
+              max(res_err, res_twin_err), res_ms, res_plain_ms, res_bound, modules_ms=res_mod_ms,
+              kernel_ms=res_kernel_ms, x_bound=res_ms / res_bound[0],
+              x_bound_kernel_ms=res_kernel_ms / res_bound[0], windows_per_cta=res_plan[0],
+              ctas=res_plan[1], shared_bytes=res_plan[2]),
         # mha_qkv, the entry the model calls; *_head_major is the mha entry
         entry("mha", "mha.cu", "attention.py:55", "tpupicknet/pallas", mha_err, mha_ms,
               mha_plain_ms, mha_bound, mha_lib_ms, ms_head_major=mha_hm_ms,
               plain_ms_head_major=mha_hm_plain_ms, library_ms_contiguous=mha_lib_packed_ms),
-    ], "launches_by_path": by_path, "optin_classify_launches": optin_launches}))
+    ], "launches_by_path": by_path, "optin_classify_launches": optin_launches,
+        "streaming": {"packets": n_packets, "passes": n_pass, "forwards": n_fwd, "picks": len(got_picks),
+                      "packets_per_s": stream_rate, "pass_ms_median": stream_pass_ms},
+        "route_max_abs_curve_diff": route_errs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -586,7 +586,8 @@ def _res_model(dev, seed):
     return model
 
 
-@pytest.mark.parametrize("b,t", [(232, 47), (1, 47), (3, 1), (5, 12), (4, 48), (2, 13)])
+@pytest.mark.parametrize("b,t", [(232, 47), (1, 47), (3, 1), (5, 12), (4, 48), (2, 13), (2, 47),
+                                 (131, 47), (233, 47), (133, 12), (600, 47)])
 def test_res_cnn_stack_matches_twin_and_modules(dev, b, t):
     model = _res_model(dev, seed=b)
     packed = cuda_rescnn.fold_res_cnn_params(model.res_cnn_stack)
@@ -600,6 +601,66 @@ def test_res_cnn_stack_matches_twin_and_modules(dev, b, t):
         for block in model.res_cnn_stack.members:
             h = block(h)
     assert (got - h).abs().max().item() <= 3e-4
+
+
+def _res_packed(rng, c, nb, dev, kernel=3):
+    """Folded parameters drawn directly, at the model's scale of weights; a
+    kernel of 2 has a zero -1 tap."""
+    bound = (6.0 / (c * 3)) ** 0.5
+    p = {k: rng.uniform(-bound, bound, (nb, 3, c, c)) for k in ("w1", "w2")}
+    if kernel == 2:
+        p["w1"][:, 0] = p["w2"][:, 0] = 0.0
+    for k in ("cb1", "cb2", "b1", "b2"):
+        p[k] = rng.normal(size=(nb, c)) * 0.1
+    for k in ("g1", "g2"):
+        p[k] = (rng.normal(size=(nb, c)) * 0.5 + 1) / np.sqrt(rng.random((nb, c)) * 2 + 0.5)
+    return {k: torch.as_tensor(v.astype(np.float32), device=dev).contiguous() for k, v in p.items()}
+
+
+@pytest.mark.parametrize("kernel", [2, 3])
+@pytest.mark.parametrize("nb", [1, 7])
+@pytest.mark.parametrize("c,t", [(64, 47), (64, 1), (64, 48), (16, 12), (16, 47), (24, 30), (63, 47), (2, 5)])
+@pytest.mark.parametrize("b", [1, 2, 5])
+def test_res_cnn_stack_shapes_and_kernels(dev, b, c, t, nb, kernel):
+    """Channels under 64 (weights copied by plain loads, padded), T at both
+    limits, 1 and 7 blocks, kernel-2 and kernel-3 convs, a CTA half full."""
+    rng = np.random.default_rng(1000 * c + 10 * t + nb)
+    packed = _res_packed(rng, c, nb, dev, kernel)
+    x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev)
+    got = cuda_rescnn.res_cnn_stack(x, packed)
+    assert got.shape == x.shape and bool(torch.isfinite(got).all())
+    assert (got - cuda_rescnn.res_cnn_stack_reference(x, packed)).abs().max().item() <= 3e-4
+
+
+@pytest.mark.parametrize("wpc", [1, 2, 3, 4])
+@pytest.mark.parametrize("b", [1, 7, 232, 233])
+def test_res_cnn_stack_windows_a_cta(dev, b, wpc, monkeypatch):
+    """Every number of windows a CTA gives the twin's result, a last CTA that
+    is not full included; a view that starts inside a tensor takes the same
+    path (its start is a multiple of 16 bytes) or, off by one float, the
+    plain loads."""
+    monkeypatch.setattr(cuda_rescnn, "WINDOWS_PER_CTA", wpc)
+    rng = np.random.default_rng(b + wpc)
+    packed = _res_packed(rng, 64, 7, dev)
+    x = torch.as_tensor(rng.normal(size=(b + 1, 64, 47)).astype(np.float32), device=dev)
+    want = cuda_rescnn.res_cnn_stack_reference(x, packed)
+    assert (cuda_rescnn.res_cnn_stack(x, packed) - want).abs().max().item() <= 3e-4
+    assert (cuda_rescnn.res_cnn_stack(x[1:], packed) - want[1:]).abs().max().item() <= 3e-4
+    flat = torch.zeros(x.numel() + 1, device=dev)
+    flat[1:] = x.reshape(-1)
+    shifted = flat[1:].view(x.shape)  # 4 bytes off a 16-byte boundary
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    assert (cuda_rescnn.res_cnn_stack(shifted, packed) - want).abs().max().item() <= 3e-4
+
+
+def test_res_cnn_plan_matches_the_library(dev):
+    fn = _build.function("rescnn_shared_bytes", [ctypes.c_int])
+    per_thread = _build.function("rescnn_channels_per_thread", [])
+    assert per_thread() == cuda_rescnn.CHANNELS_PER_THREAD
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for wpc in range(1, cuda_rescnn.MAX_WINDOWS + 1):
+        assert fn(wpc) == cuda_rescnn.rescnn_plan(wpc * n_sm, n_sm)[2] == cuda_rescnn.rescnn_plan(9, n_sm, wpc)[2]
+    assert fn(cuda_rescnn.MAX_WINDOWS) <= 232448  # what a block may take on an H100
 
 
 def test_res_cnn_stack_narrow_channels(dev):
@@ -618,9 +679,30 @@ def test_res_cnn_stack_refusals(dev):
     packed = cuda_rescnn.fold_res_cnn_params(model.res_cnn_stack)
     with pytest.raises(ValueError, match="limits"):  # T = 49
         cuda_rescnn.res_cnn_stack(torch.zeros(1, 64, 49, device=dev), packed)
+    wide = _res_packed(np.random.default_rng(0), 65, 1, dev)
+    with pytest.raises(ValueError, match="limits"):  # C = 65
+        cuda_rescnn.res_cnn_stack(torch.zeros(1, 65, 47, device=dev), wide)
     x = torch.zeros(2, 47, 64, device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_rescnn.res_cnn_stack(x, packed)
+    x = torch.zeros(2, 64, 47, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_rescnn.res_cnn_stack(x, dict(packed, w1=packed["w1"].transpose(2, 3)))
+    with pytest.raises(TypeError, match="float32"):
+        cuda_rescnn.res_cnn_stack(x.double(), packed)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_rescnn.res_cnn_stack(x, dict(packed, g1=packed["g1"].half()))
+    with pytest.raises(ValueError, match="is on"):
+        cuda_rescnn.res_cnn_stack(x, dict(packed, cb1=packed["cb1"].cpu()))
+    with pytest.raises(ValueError, match="no backward"):
+        cuda_rescnn.res_cnn_stack(x.clone().requires_grad_(), packed)
+    with pytest.raises(ValueError, match="no backward"):
+        cuda_rescnn.res_cnn_stack(x, dict(packed, w2=packed["w2"].clone().requires_grad_()))
+    with torch.no_grad():  # nothing to differentiate: taken
+        cuda_rescnn.res_cnn_stack(x.clone().requires_grad_(), packed)
+    before = cuda_rescnn.launches
+    empty = cuda_rescnn.res_cnn_stack(torch.zeros(0, 64, 47, device=dev), packed)
+    assert empty.shape == (0, 64, 47) and cuda_rescnn.launches == before
 
 
 # ---- the opt-in route end to end

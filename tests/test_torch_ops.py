@@ -130,3 +130,37 @@ def test_condition_windows_from_span(rng, detrend, norm, n_win, stride, window):
     fr = tsig.detrend_linear(fr) if detrend else tsig.demean(fr)
     ref = tsig.normalize_amplitude(fr, norm, per_channel=True).numpy()
     np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("do_demean,do_detrend", [(True, False), (False, True), (False, False), (True, True)])
+@pytest.mark.parametrize("norm", ["peak", "std"])
+def test_normalize_block(rng, norm, do_demean, do_detrend):
+    x = (rng.normal(size=(4, 3, 700)) * 5 + np.linspace(0, 9, 700)).astype(np.float32)
+    got = tsig.normalize(_t(x), norm, do_demean=do_demean, do_detrend=do_detrend).numpy()
+    want = jsig.normalize(jnp.asarray(x), norm, do_demean=do_demean, do_detrend=do_detrend)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+    with pytest.raises(ValueError, match="unknown norm"):
+        tsig.normalize(_t(x), "max")
+
+
+@pytest.mark.parametrize("n_samples,window", [(6000, 3001), (3001, 3001), (2000, 3001), (12000, 6000)])
+def test_steered_window_indices_equal(rng, n_samples, window):
+    start = rng.integers(0, n_samples - 10, size=40)
+    end = np.minimum(start + rng.integers(1, min(window, n_samples), size=40), n_samples)
+    got = twin.steered_window_indices(n_samples, start, end, window)
+    want = jwin.steered_window_indices(n_samples, start, end, window)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    w0, lo, hi = got
+    assert ((hi - lo) == (end - start)).all() and (lo >= 0).all()
+    if n_samples >= window:
+        assert (w0 >= 0).all() and (w0 + window <= n_samples).all()
+
+
+@pytest.mark.parametrize("w0", [-50, 0, 120, 900, 1500])
+def test_pad_frame_equal(rng, w0):
+    data = rng.normal(size=(3, 1000)).astype(np.float32)
+    got = twin.pad_frame(data, w0, 400)
+    np.testing.assert_array_equal(got, jwin.pad_frame(data, w0, 400))
+    assert got.shape == (3, 400) and got.dtype == data.dtype

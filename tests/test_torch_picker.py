@@ -280,7 +280,8 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(volpick_tpu_torch.__path__, 'volpick_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "for want in ('core.stream', 'core.picks', 'ops.cuda.addattn', 'ops.cuda.conditioning',\n"
+        "for want in ('core.stream', 'core.picks', 'picker.streaming', 'picker.oracle',\n"
+        "             'picker.stage_times', 'ops.cuda.addattn', 'ops.cuda.conditioning',\n"
         "             'ops.cuda.rescnn', 'ops.cuda.triggers', 'ops.cuda.lstm', 'ops.cuda.attention'):\n"
         "    assert 'volpick_tpu_torch.' + want in sys.modules, want\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'volpick_tpu')]\n"

@@ -120,3 +120,40 @@ def test_wrapper_checks_its_arguments(pair):
         rescnn.res_cnn_stack(x.double(), packed)
     with pytest.raises(ValueError):
         rescnn.res_cnn_stack(x.to("meta"), packed)
+
+
+@pytest.mark.parametrize("b,want", [
+    (1, (1, 1)), (2, (1, 2)), (131, (1, 131)), (132, (1, 132)), (133, (2, 67)), (232, (2, 116)),
+    (233, (2, 117)), (256, (2, 128)), (264, (2, 132)), (265, (3, 89)), (396, (3, 132)), (397, (4, 100)),
+    (528, (4, 132)), (529, (4, 133)), (5000, (4, 1250)),
+])
+def test_rescnn_plan(b, want):
+    """Windows a CTA and CTAs on a card of 132 SMs: as few windows a CTA as
+    leave no SM a second CTA, at most 4; every window in exactly one CTA."""
+    wpc, ctas, smem = rescnn.rescnn_plan(b, 132)
+    assert (wpc, ctas) == want
+    assert (ctas - 1) * wpc < b <= ctas * wpc and 1 <= wpc <= rescnn.MAX_WINDOWS
+    assert ctas <= 132 or wpc == rescnn.MAX_WINDOWS
+    # two weight buffers of 48 KB, two parameter buffers, two activation buffers a window
+    assert smem == 4 * (2 * 3 * 64 * 64 + 2 * 6 * 64 + wpc * 2 * (64 * 56 + 64))
+    assert smem <= 232448  # what a block may take on an H100
+    assert rescnn.rescnn_plan(b, 132, wpc=1) == (1, b, 4 * (24576 + 768 + 7296))
+
+
+def test_rescnn_plan_refuses():
+    for bad in ((0, 132), (5, 0)):
+        with pytest.raises(ValueError, match="needs b >= 1"):
+            rescnn.rescnn_plan(*bad)
+    for wpc in (0, 5):
+        with pytest.raises(ValueError, match="windows a CTA"):
+            rescnn.rescnn_plan(10, 132, wpc)
+    assert rescnn.rescnn_plan(10, 4) == (3, 4, rescnn.rescnn_plan(3, 1)[2])  # a small card
+
+
+def test_no_blocks_and_no_windows_on_the_cpu(pair):
+    _, model = pair
+    packed = rescnn.fold_res_cnn_params(model.res_cnn_stack)
+    none = {k: v[:0] for k, v in packed.items()}
+    x = torch.randn(2, 64, 5)
+    assert torch.equal(rescnn.res_cnn_stack(x, none), x)
+    assert rescnn.res_cnn_stack(x[:0], packed).shape == (0, 64, 5)

@@ -11,7 +11,10 @@ the numpy oracle, with per-row thresholds and more runs than K. The
 combine with the exclusive prefix: the two-level structure of the CUDA
 kernel, a piece a warp) is held against the flat scan, JAX's ``"blocked"`` and
 ``"shift"`` and the numpy oracle for block lengths 1, 7 and 2048, with runs
-across and beyond block boundaries. Tolerance: none.
+across and beyond block boundaries. The ``"assoc"`` method (an up-sweep over
+pairs and a down-sweep, the recursion of ``jax.lax.associative_scan``) is held
+against ``"shift"``, ``"blocked"`` and JAX's ``"assoc"`` on the same cases, at
+every position of the scanned state. Tolerance: none.
 """
 
 import jax.numpy as jnp
@@ -143,6 +146,33 @@ def test_blocked_scan_equals_flat_scan_and_jax(rng, w, block):
                                          max_picks=k, method=method))
 
 
+def _assoc(prob, t1, t2):
+    out = cuda_triggers._scan_states(torch.as_tensor(prob), torch.as_tensor(t1), torch.as_tensor(t2),
+                                     cuda_triggers.SCAN_NEG, pairwise=True)
+    return [a.numpy() for a in out]
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 7, 64, 2100, 2600])
+def test_assoc_scan_equals_flat_scan_and_jax(rng, w):
+    """Every position of all three outputs: the pairwise scan against the flat
+    one, and its picks against "shift", "blocked" and JAX's "assoc"."""
+    k = 16
+    prob = edge_curves(rng, w, k)
+    b = prob.shape[0]
+    t1 = rng.uniform(0.4, 0.7, b).astype(np.float32)
+    t2 = (t1 * 0.5).astype(np.float32)
+    for name, g, f in zip(("onset", "max", "argmax"), _assoc(prob, t1, t2), _scan(prob, t1, t2)):
+        assert g.dtype == f.dtype
+        np.testing.assert_array_equal(g, f, err_msg=name)
+    args = (torch.as_tensor(prob), torch.as_tensor(t1), torch.as_tensor(t2))
+    got = [a.numpy() for a in extract_triggers_batched(*args, max_picks=k, method="assoc")]
+    for method in ("shift", "blocked", "pallas_full"):
+        assert_same(got, [a.numpy() for a in extract_triggers_batched(*args, max_picks=k, method=method)])
+    if k <= w:
+        assert_same(got, jax_extract(jnp.asarray(prob), jnp.asarray(t1), jnp.asarray(t2),
+                                     max_picks=k, method="assoc"))
+
+
 def _one_row(w, *runs):
     r = np.full(w, 0.1, np.float32)
     for lo, hi, v in runs:
@@ -176,8 +206,12 @@ def test_blocked_scan_traps(trap):
     quiet = w if first_onset is None else first_onset  # positions before the first run
     assert (on[:quiet] == I32_MAX).all() and (am[:quiet] == 0).all()
     assert (m[:quiet] == np.float32(cuda_triggers.SCAN_NEG)).all()
+    for name, g, f in zip(("onset", "max", "argmax"), _assoc(prob, t1, t2), got):
+        np.testing.assert_array_equal(g, f, err_msg=f"assoc {name}")
     picks = [a.numpy() for a in extract_triggers_batched(torch.as_tensor(prob), 0.5, max_picks=4,
                                                          method="blocked")]
+    assert_same(picks, [a.numpy() for a in extract_triggers_batched(torch.as_tensor(prob), 0.5,
+                                                                    max_picks=4, method="assoc")])
     trig = trigger_onset_numpy(prob[0], 0.5, 0.25)
     assert picks[2][0].sum() == len(trig)
     if trap == "run_spans_three_blocks":
@@ -187,6 +221,31 @@ def test_blocked_scan_traps(trap):
         assert tuple(trig[-1]) == (21, w - 1) and picks[4][0, 1] == w - 1 and picks[3][0, 1] == 21
     if trap == "never_triggers":
         assert len(trig) == 0 and (picks[0] == -1).all()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_assoc_method_matches_numpy_oracle_and_jax(seed):
+    rng = np.random.default_rng(200 + seed)
+    b, w, k = 10, 3001, (3, 40)[seed % 2]
+    smooth = np.ones(int(rng.integers(1, 30)))
+    prob = np.stack([np.convolve(rng.random(w), smooth / smooth.size, mode="same")
+                     for _ in range(b)]).astype(np.float32)
+    t1 = rng.uniform(0.3, 0.8, size=b).astype(np.float32)
+    t2 = (t1 * rng.uniform(0.3, 1.0, size=b)).astype(np.float32)
+    got = [a.numpy() for a in extract_triggers_batched(
+        torch.as_tensor(prob), torch.as_tensor(t1), torch.as_tensor(t2), max_picks=k, method="assoc")]
+    assert_same(got, jax_extract(jnp.asarray(prob), jnp.asarray(t1), jnp.asarray(t2),
+                                 max_picks=k, method="assoc"))
+    peaks = port_triggers.extract_picks_batched(torch.as_tensor(prob), torch.as_tensor(t1),
+                                                torch.as_tensor(t2), max_picks=k)
+    assert_same([a.numpy() for a in peaks], got[:3])
+    for i in range(b):
+        trig = trigger_onset_numpy(prob[i], float(t1[i]), float(t2[i]))
+        assert trig == port_triggers.trigger_onset_numpy(prob[i], float(t1[i]), float(t2[i]))
+        n = min(len(trig), k)
+        assert got[2][i].sum() == n
+        np.testing.assert_array_equal(got[3][i, :n], [t[0] for t in trig[:n]])
+        np.testing.assert_array_equal(got[4][i, :n], [t[1] for t in trig[:n]])
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -244,12 +303,16 @@ def test_method_resolution_and_refusals(monkeypatch):
     assert calls == [1]
     extract_triggers_batched(prob, 0.5, max_picks=4, method="pallas_full")  # the argument wins
     assert calls == [1]
-    with pytest.raises(NotImplementedError, match="assoc"):  # the one method not ported
-        extract_triggers_batched(prob, 0.5, method="assoc")
-    for g, r in zip(extract_triggers_batched(prob, 0.5, max_picks=4, method="blocked"),
+    for method in ("blocked", "assoc"):
+        for g, r in zip(extract_triggers_batched(prob, 0.5, max_picks=4, method=method),
+                        extract_triggers_batched(prob, 0.5, max_picks=4, method="shift")):
+            assert torch.equal(g, r)
+    assert calls == [1]  # "blocked" and "assoc" are plain PyTorch
+    monkeypatch.setenv("VOLPICK_TRIGGER_METHOD", "assoc")
+    assert default_trigger_method() == "assoc"
+    for g, r in zip(extract_triggers_batched(prob, 0.5, max_picks=4),
                     extract_triggers_batched(prob, 0.5, max_picks=4, method="shift")):
         assert torch.equal(g, r)
-    assert calls == [1]  # "blocked" is plain PyTorch
     with pytest.raises(ValueError, match="block"):
         cuda_triggers.trigger_extract_blocked(prob, torch.ones(3), torch.ones(3), 4, block=0)
     with pytest.raises(ValueError, match="unknown trigger scan method"):

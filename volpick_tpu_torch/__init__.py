@@ -11,7 +11,8 @@ own copy.
                                   with a plain PyTorch twin used on the CPU
 - ``volpick_tpu_torch.models`` : EQTransformer, VolEQTransformer, PhaseNet, TPUPickNet eval
                                   forwards, registry, JAX weight conversion
-- ``volpick_tpu_torch.picker`` : WaveformPicker (annotate / classify on streams)
+- ``volpick_tpu_torch.picker`` : WaveformPicker (annotate / classify on streams),
+                                  StreamingPicker (chunks in, final picks out), the numpy oracle
 """
 
 __version__ = "0.1.0"

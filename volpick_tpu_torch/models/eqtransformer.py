@@ -1,13 +1,15 @@
 """EQTransformer (Mousavi et al. 2020), eval forward in PyTorch.
 
-Port of ``volpick_tpu/models/eqtransformer.py`` along its ``"plstm+bandattn"``
-route: encoder (7 convs + max pools) → 7 pre-activation res-CNN blocks → 3
-BiLSTM blocks → 2 transformer blocks with dense additive attention → a
-detection decoder plus P/S pick branches (both pick LSTMs in one merged
-recurrence, width-3 banded attention), each with its own decoder and sigmoid
-head. Every LSTM recurrence goes through ``ops/cuda/lstm.py::lstm_branches``.
-With the ``fused`` token ``"pattn"`` the transformer blocks' attention goes
-through ``ops/cuda/addattn.py::seq_self_attention`` (see ``resolve_fused``).
+Port of ``volpick_tpu/models/eqtransformer.py``: encoder (7 convs + max
+pools) → 7 pre-activation res-CNN blocks → 3 BiLSTM blocks → 2 transformer
+blocks with dense additive attention → a detection decoder plus P/S pick
+branches (an LSTM and width-3 attention each), each with its own decoder and
+sigmoid head. ``fused`` selects among the JAX package's routes through that
+program (``parse_fused``); the default, ``"plstm+bandattn"``, runs every LSTM
+recurrence through ``ops/cuda/lstm.py::lstm_branches`` (both pick LSTMs in one
+merged recurrence) and the pick attention over its band only. With ``"pattn"``
+the transformer blocks' attention goes through
+``ops/cuda/addattn.py::seq_self_attention``.
 
 Submodules and parameters carry the SeisBench state-dict names (the key map
 of ``volpick_tpu/models/torch_import.py::import_eqtransformer``), so a
@@ -29,55 +31,75 @@ from volpick_tpu_torch.models.layers import (
     conv1d,
     conv1d_same,
     layer_norm_keras,
+    lstm,
     max_pool1d,
     seq_self_attention,
     seq_self_attention_banded,
+    seq_self_attention_masked,
+    upsample2_conv1d_same,
     upsample_nearest,
 )
 from volpick_tpu_torch.models.params import Conv, bn, uniform
 from volpick_tpu_torch.models.params import bn_params as _bn_params
 from volpick_tpu_torch.ops.cuda.addattn import seq_self_attention as seq_self_attention_kernel
-from volpick_tpu_torch.ops.cuda.lstm import lstm_branches
+from volpick_tpu_torch.ops.cuda.lstm import lstm_branches, lstm_branches_reference
 
 _BN_EPS = 1e-3
 _LN_EPS = 1e-14
 _ATTN_EPS = 1e-5
 
 DEFAULT_FUSED = "plstm+bandattn"
-# tokens of the JAX ``fused`` flag: the port always runs "plstm" and
-# "bandattn", adds "pattn" on request and has not ported the others
-_FUSED_PORTED = {"plstm", "bandattn", "pattn"}
-_FUSED_NOT_PORTED = {"lstm", "grouped", "blockdiag", "polyup"}
+PER_BRANCH = "0"  # the canonical name of fused=False, the per-branch program
+_FUSED_TOKENS = ("lstm", "plstm", "grouped", "blockdiag", "bandattn", "polyup", "pattn")
+STAGES = ("encoder", "res_cnn", "bilstm", "transformer", "pick")
 
 
 def parse_fused(fused: Union[str, bool]) -> str:
-    """Canonical ``fused`` route, ``"plstm+bandattn"`` or
-    ``"plstm+bandattn+pattn"``, from a flag of the JAX package's grammar: True
-    or "1" is the default route; a "+"-joined token set must hold "plstm" and
-    "bandattn" and may hold "pattn". The tokens the port has not ported, and
-    False (the per-branch program), raise NotImplementedError; an unknown token
-    raises ValueError."""
+    """Canonical ``fused`` route from a flag of the JAX package's grammar.
+
+    True or "1" is the default route ``"plstm+bandattn"``; False, "0" or an
+    empty flag is the per-branch program, ``"0"``; otherwise a "+"-joined set of
+
+    - ``"lstm"``: each BiLSTM's two directions and the pick LSTMs ride merged
+      recurrences, in plain PyTorch; ``"plstm"``: the same through the LSTM
+      kernel (implies ``"lstm"``);
+    - ``"bandattn"``: the pick attention computes its width-3 band only,
+      instead of dense energies masked afterwards (an O(eps) difference);
+    - ``"pattn"``: the transformer blocks' attention through its kernel;
+    - ``"grouped"`` / ``"blockdiag"``: the decoders of all branches as one
+      grouped convolution stack / one dense stack with block-diagonal weights;
+    - ``"polyup"``: a decoder's upsample + conv as two polyphase convs at the
+      input's resolution (composes with the two above).
+
+    The result names the tokens in that fixed order without the implied ones.
+    An unknown token raises ValueError."""
     flag = fused.strip().lower() if isinstance(fused, str) else fused
     if flag is True or flag in ("1", "true", "on", "yes"):
         return DEFAULT_FUSED
-    if flag is False or flag in ("0", "false", "off", "no"):
-        raise NotImplementedError(
-            "fused=False (the per-branch EQTransformer program) is not ported; "
-            f"use {DEFAULT_FUSED!r} or {DEFAULT_FUSED + '+pattn'!r}"
-        )
+    if not flag or flag in ("0", "false", "off", "no"):
+        return PER_BRANCH
     parts = set(str(flag).split("+"))
-    unknown = parts - _FUSED_PORTED - _FUSED_NOT_PORTED
+    unknown = parts - set(_FUSED_TOKENS)
     if unknown:
         raise ValueError(f"unknown fused flags: {sorted(unknown)}")
-    missing = parts & _FUSED_NOT_PORTED
-    if missing:
-        raise NotImplementedError(f"fused flags {sorted(missing)} are not ported")
-    if not {"plstm", "bandattn"} <= parts:
-        raise NotImplementedError(
-            f"fused={fused!r}: the port runs the merged LSTM kernel and the banded pick "
-            "attention always; a route without 'plstm' and 'bandattn' is not ported"
-        )
-    return DEFAULT_FUSED + ("+pattn" if "pattn" in parts else "")
+    picked = [
+        "plstm" if "plstm" in parts else "lstm" if "lstm" in parts else "",
+        "bandattn" if "bandattn" in parts else "",
+        "pattn" if "pattn" in parts else "",
+        "grouped" if "grouped" in parts else "blockdiag" if "blockdiag" in parts else "",
+        "polyup" if "polyup" in parts else "",
+    ]
+    return "+".join(t for t in picked if t)
+
+
+def _block_diag_kernel(ws: List[torch.Tensor]) -> torch.Tensor:
+    """Per-branch conv kernels (O, I, K) stacked into one dense block-diagonal
+    kernel (G·O, G·I, K): branch g's filters see only channels [g·I, (g+1)·I)."""
+    o, i, k = ws[0].shape
+    w = ws[0].new_zeros((len(ws) * o, len(ws) * i, k))
+    for j, wj in enumerate(ws):
+        w[j * o : (j + 1) * o, j * i : (j + 1) * i] = wj
+    return w
 
 
 def _encoder_pool_paddings(in_samples: int, n_layers: int) -> List[int]:
@@ -220,8 +242,8 @@ class BiLSTMBlock(nn.Module):
         self.conv = Conv(2 * hidden, hidden, 1, gen)
         self.norm = _bn(hidden)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        y = bilstm(h, self.lstm.bidirectional_params())
+    def forward(self, h: torch.Tensor, fused="pallas") -> torch.Tensor:
+        y = bilstm(h, self.lstm.bidirectional_params(), fused=fused)
         y = conv1d(y, self.conv.weight, self.conv.bias)
         return batch_norm(y, _bn_params(self.norm), _BN_EPS)
 
@@ -237,7 +259,9 @@ class EQTransformer(nn.Module):
 
     One detection decoder + head is built per entry of ``detection_branches``
     (VolEQTransformer adds a second). ``fused`` picks the forward's route
-    (``resolve_fused``); ``forward(x, fused=...)`` overrides it for one call.
+    (``resolve_fused``); ``forward(x, fused=...)`` overrides it for one call,
+    ``logits=True`` returns the heads before the sigmoid and ``stop_after``
+    the intermediate of a stage.
 
     Parameters are drawn from ``generator`` (a fresh ``torch.Generator``
     seeded 0 when omitted) with the distributions of the JAX
@@ -302,6 +326,10 @@ class EQTransformer(nn.Module):
         self._crops = set(_decoder_crops(in_samples, len(f)))
 
     @property
+    def labels(self) -> str:
+        return "D" + self.phases  # detection + phases
+
+    @property
     def detection_branches(self) -> Tuple[Tuple[str, str], ...]:
         """(decoder, output conv) attribute names per detection head."""
         return (("decoder_d", "conv_d"),)
@@ -310,13 +338,40 @@ class EQTransformer(nn.Module):
         f, ks = list(self.filters), list(self.kernel_sizes)
         return ConvStack([16] + f[::-1][:-1], f[::-1], ks[::-1], gen)
 
-    def _decode(self, z: torch.Tensor, dec: ConvStack, head: Conv) -> torch.Tensor:
+    def _upconv(self, z, w, b, i: int, poly_up: bool, groups: int = 1) -> torch.Tensor:
+        """Decoder layer i: 2x nearest upsampling (cropped by one where the
+        encoder padded), 'same' conv, relu."""
+        if poly_up:
+            return F.relu(upsample2_conv1d_same(z, w, b, crop_last=i in self._crops, groups=groups))
+        z = upsample_nearest(z, 2)
+        if i in self._crops:
+            z = z[..., :-1]
+        return F.relu(conv1d_same(z, w, b, groups=groups))
+
+    def _decode(self, z: torch.Tensor, dec: ConvStack, head: Conv, poly_up: bool) -> torch.Tensor:
+        """One branch's decoder and head: (B, 16, T) → logits (B, in_samples)."""
         for i, conv in enumerate(dec.convs):
-            z = upsample_nearest(z, 2)
-            if i in self._crops:
-                z = z[..., :-1]
-            z = F.relu(conv.same(z))
-        return torch.sigmoid(head.same(z)[:, 0])
+            z = self._upconv(z, conv.weight, conv.bias, i, poly_up)
+        return head.same(z)[:, 0]
+
+    def _decode_merged(self, branch_ins, decoders, heads, mode: str, poly_up: bool):
+        """Every branch's decoder and head as ONE conv stack: grouped, or dense
+        with block-diagonal weights. → per-branch logits (B, in_samples)."""
+        groups = len(decoders)
+
+        def merged(convs):
+            bias = torch.cat([c.bias for c in convs])
+            if mode == "grouped":
+                return torch.cat([c.weight for c in convs]), bias, groups
+            return _block_diag_kernel([c.weight for c in convs]), bias, 1
+
+        z = torch.cat(branch_ins, dim=1)  # (B, groups * 16, T)
+        for i in range(len(decoders[0].convs)):
+            w, b, g = merged([d.convs[i] for d in decoders])
+            z = self._upconv(z, w, b, i, poly_up, groups=g)
+        w, b, g = merged(heads)
+        preds = conv1d_same(z, w, b, groups=g)  # (B, groups, W)
+        return [preds[:, i] for i in range(groups)]
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """The encoder alone: x (B, 3, in_samples) → (B, filters[-1], T)."""
@@ -326,7 +381,7 @@ class EQTransformer(nn.Module):
         return h
 
     def resolve_fused(self) -> str:
-        """The forward's route: the ``fused`` field, else
+        """The forward's canonical route: the ``fused`` field, else
         ``$VOLPICK_EQT_FUSED``, else ``"plstm+bandattn"``; see ``parse_fused``."""
         if self.fused is not None:
             return parse_fused(self.fused)
@@ -334,35 +389,73 @@ class EQTransformer(nn.Module):
         return parse_fused(env) if env else DEFAULT_FUSED
 
     def forward(
-        self, x: torch.Tensor, fused: Union[str, bool, None] = None
-    ) -> Tuple[torch.Tensor, ...]:
-        route = parse_fused(fused) if fused is not None else self.resolve_fused()
-        p_attn = route.endswith("+pattn")
+        self,
+        x: torch.Tensor,
+        fused: Union[str, bool, None] = None,
+        logits: bool = False,
+        stop_after: Optional[str] = None,
+    ):
+        """x (B, 3, in_samples) → one (B, in_samples) curve a head. ``stop_after``
+        (a diagnostic) ends the program after the named stage and returns its
+        intermediate: "encoder" | "res_cnn" | "bilstm" | "transformer" (the
+        trunk, (B, 16, T)) or "pick" (the tuple of per-branch decoder inputs)."""
+        if stop_after is not None and stop_after not in STAGES:
+            raise ValueError(f"stop_after must be one of {STAGES}")
+        parts = set((parse_fused(fused) if fused is not None else self.resolve_fused()).split("+"))
+        fuse_lstm = "pallas" if "plstm" in parts else "lstm" in parts
+        band_attn, p_attn, poly_up = "bandattn" in parts, "pattn" in parts, "polyup" in parts
+        decode_mode = "grouped" if "grouped" in parts else "blockdiag" if "blockdiag" in parts else "branch"
+
         h = self.encode(x)
+        if stop_after == "encoder":
+            return h
         for block in self.res_cnn_stack.members:
             h = block(h)
+        if stop_after == "res_cnn":
+            return h
         for block in self.bi_lstm_stack.members:
-            h = block(h)
+            h = block(h, fuse_lstm)
+        if stop_after == "bilstm":
+            return h
         h = self.transformer_d(self.transformer_d0(h, p_attn), p_attn)
+        if stop_after == "transformer":
+            return h
 
-        # both pick LSTMs read the trunk output: one merged recurrence
+        def pick_attention(px, att):
+            if band_attn:
+                return seq_self_attention_banded(px, att.params(), 3, eps=_ATTN_EPS)
+            return seq_self_attention_masked(px, att.params(), 3, eps=_ATTN_EPS)
+
+        # detection branches take the trunk output; pick branches run an LSTM
+        # and local attention first (all pick LSTMs read the trunk: one merged
+        # recurrence when fuse_lstm)
         branch_ins = [h for _ in self.detection_branches]
-        if len(self.pick_lstms):
-            n = len(self.pick_lstms)
-            px = lstm_branches(
+        n = len(self.pick_lstms)
+        if fuse_lstm and n:
+            run = lstm_branches if fuse_lstm == "pallas" else lstm_branches_reference
+            px = run(
                 h,
                 torch.stack([m.weight_ih_l0 for m in self.pick_lstms]),
                 torch.stack([m.weight_hh_l0 for m in self.pick_lstms]),
                 torch.stack([m.bias_ih_l0 + m.bias_hh_l0 for m in self.pick_lstms]),
                 reverse=(False,) * n,
             ).chunk(n, dim=1)  # n x (B, 16, T)
-            branch_ins += [
-                seq_self_attention_banded(px[i], att.params(), 3, eps=_ATTN_EPS)
-                for i, att in enumerate(self.pick_attentions)
-            ]
+            branch_ins += [pick_attention(px[i], att) for i, att in enumerate(self.pick_attentions)]
+        else:
+            for m, att in zip(self.pick_lstms, self.pick_attentions):
+                px = lstm(h, m.weight_ih_l0, m.weight_hh_l0, m.bias_ih_l0, m.bias_hh_l0,
+                                kernel=False)
+                branch_ins.append(pick_attention(px, att))
+        if stop_after == "pick":
+            return tuple(branch_ins)
+
         decoders = [getattr(self, dk) for dk, _ in self.detection_branches] + list(self.pick_decoders)
         heads = [getattr(self, ck) for _, ck in self.detection_branches] + list(self.pick_convs)
-        return tuple(self._decode(z, d, c) for z, d, c in zip(branch_ins, decoders, heads))
+        if decode_mode == "branch":
+            preds = [self._decode(z, d, c, poly_up) for z, d, c in zip(branch_ins, decoders, heads)]
+        else:
+            preds = self._decode_merged(branch_ins, decoders, heads, decode_mode, poly_up)
+        return tuple(preds if logits else [torch.sigmoid(p) for p in preds])
 
 
 class VolEQTransformer(EQTransformer):

@@ -4,7 +4,9 @@ Port of ``volpick_tpu/models/layers.py``. Tensors are (B, C, W); conv
 kernels are (O, I, K) and LSTM weights keep torch's (i, f, g, o) gate
 layout, so parameters carry over from the JAX tree unchanged. The merged
 LSTM recurrence runs through ``ops/cuda/lstm.py::lstm_branches`` (a CUDA
-kernel on the card, its plain twin on the CPU).
+kernel on the card, its plain twin on the CPU); ``lstm(kernel=False)`` and
+``bilstm(fused=True | False)`` are the JAX package's routes without the
+kernel, the same recurrences in plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from volpick_tpu_torch.ops.cuda.lstm import lstm_branches
+from volpick_tpu_torch.ops.cuda.lstm import lstm_branches, lstm_branches_reference
 
 
 def conv1d(
@@ -23,19 +25,25 @@ def conv1d(
     b: Optional[torch.Tensor] = None,
     stride: int = 1,
     padding: Tuple[int, int] = (0, 0),
+    groups: int = 1,
 ) -> torch.Tensor:
-    """1D convolution, (B, I, W) x (O, I, K) → (B, O, W'), explicit (left, right) pad."""
+    """1D convolution, (B, I, W) x (O, I/G, K) → (B, O, W'), explicit (left,
+    right) pad. With groups=G the input channels split into G groups and
+    filter rows [g·O/G, (g+1)·O/G) convolve group g: several same-shaped
+    branches as one wider conv."""
     if padding != (0, 0):
         x = F.pad(x, padding)
-    return F.conv1d(x, w, b, stride=stride)
+    return F.conv1d(x, w, b, stride=stride, groups=groups)
 
 
-def conv1d_same(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def conv1d_same(
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, groups: int = 1
+) -> torch.Tensor:
     """'same' conv; an even kernel pads one extra sample on the right (the
     keras asymmetric 'same' of the reference models). torch's own
     padding="same" puts the extra sample on the left instead."""
     k = w.shape[-1]
-    return conv1d(x, w, b, padding=((k - 1) // 2, k // 2))
+    return conv1d(x, w, b, padding=((k - 1) // 2, k // 2), groups=groups)
 
 
 def upsample2_conv1d_same(
@@ -43,8 +51,9 @@ def upsample2_conv1d_same(
     w: torch.Tensor,
     b: Optional[torch.Tensor] = None,
     crop_last: bool = False,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """``conv1d_same(upsample_nearest(x, 2)[..., :-1 if crop_last else None], w, b)``
+    """``conv1d_same(upsample_nearest(x, 2)[..., :-1 if crop_last else None], w, b, groups)``
     as two polyphase convs at input resolution (odd kernels only).
 
     Output parity r reads ``out[2i+r] = sum_j w[j] x[(2i+r+j-p)//2]``, so taps
@@ -63,13 +72,15 @@ def upsample2_conv1d_same(
         wk = w.new_zeros(w.shape[:-1] + (d_max - d_min + 1,))
         for j, d in enumerate(d_vals):
             wk[..., d - d_min] += w[..., j]
-        outs.append(conv1d(x, wk, padding=(-d_min, d_max)))
+        outs.append(conv1d(x, wk, padding=(-d_min, d_max), groups=groups))
     y = torch.stack(outs, dim=-1).reshape(x.shape[0], w.shape[0], 2 * t)
     if crop_last:
         y = y[..., : 2 * t - 1]
         if p > 0:
             # position m of the last p used tap 2p - m on x[T-1]
-            corr = torch.einsum("bi,oip->bop", x[..., t - 1], w[..., p + 1 :].flip(-1))
+            xg = x[..., t - 1].reshape(x.shape[0], groups, w.shape[1])
+            wg = w[..., p + 1 :].flip(-1).reshape(groups, w.shape[0] // groups, w.shape[1], p)
+            corr = torch.einsum("bgi,goip->bgop", xg, wg).reshape(x.shape[0], w.shape[0], p)
             y = torch.cat([y[..., : 2 * t - 1 - p], y[..., 2 * t - 1 - p :] - corr], dim=-1)
     if b is not None:
         y = y + b[None, :, None]
@@ -122,19 +133,30 @@ def lstm(
     b_ih: torch.Tensor,
     b_hh: torch.Tensor,
     reverse: bool = False,
+    kernel: bool = True,
 ) -> torch.Tensor:
-    """One LSTM over (B, C, T) → (B, H, T), optionally scanning time reversed."""
-    return lstm_branches(x, w_ih[None], w_hh[None], (b_ih + b_hh)[None], reverse=(reverse,))
+    """One LSTM over (B, C, T) → (B, H, T), optionally scanning time reversed.
+    ``kernel=False`` takes the plain recurrence on any device."""
+    run = lstm_branches if kernel else lstm_branches_reference
+    return run(x, w_ih[None], w_hh[None], (b_ih + b_hh)[None], reverse=(reverse,))
 
 
-def bilstm(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Bidirectional LSTM, (B, C, T) → (B, 2H, T): both directions ride one
-    ``lstm_branches`` call over the same x (the second scans time backward),
-    forward states first on the channel axis."""
+def bilstm(x: torch.Tensor, p: Dict[str, torch.Tensor], fused="pallas") -> torch.Tensor:
+    """Bidirectional LSTM, (B, C, T) → (B, 2H, T), forward states first on the
+    channel axis. ``fused`` is the JAX function's switch: ``"pallas"`` (the
+    port's default) runs both directions in one ``lstm_branches`` call over
+    the same x, the kernel on the card; ``True`` the same merged recurrence
+    without the kernel; ``False`` one plain recurrence a direction."""
+    if not fused:
+        fwd = lstm(x, p["w_ih"], p["w_hh"], p["b_ih"], p["b_hh"], kernel=False)
+        bwd = lstm(x, p["w_ih_rev"], p["w_hh_rev"], p["b_ih_rev"], p["b_hh_rev"],
+                   reverse=True, kernel=False)
+        return torch.cat([fwd, bwd], dim=1)
     w_ih = torch.stack([p["w_ih"], p["w_ih_rev"]])
     w_hh = torch.stack([p["w_hh"], p["w_hh_rev"]])
     bias = torch.stack([p["b_ih"], p["b_ih_rev"]]) + torch.stack([p["b_hh"], p["b_hh_rev"]])
-    return lstm_branches(x, w_ih, w_hh, bias, reverse=(False, True))
+    run = lstm_branches if fused == "pallas" else lstm_branches_reference
+    return run(x, w_ih, w_hh, bias, reverse=(False, True))
 
 
 def seq_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
@@ -148,6 +170,29 @@ def seq_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor], eps: float =
     h = torch.tanh(q[:, :, None, :] + k[:, None, :, :] + p["bh"])  # (B, T, T, U)
     e = (h @ p["Wa"])[..., 0] + p["ba"][0]
     e = torch.exp(e - e.amax(dim=-1, keepdim=True))
+    a = e / (e.sum(dim=-1, keepdim=True) + eps)
+    return (a @ xt).transpose(1, 2)
+
+
+def seq_self_attention_masked(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], attention_width: int, eps: float = 1e-5
+) -> torch.Tensor:
+    """``seq_self_attention`` with a band mask of `attention_width` around the
+    diagonal: the dense (B, T, T) energies are computed, stabilised by the
+    max of the whole row and masked afterwards (the keras SeqSelfAttention
+    semantics of the reference's pick branches; the JAX function's
+    ``attention_width=`` option). Returns values (B, C, T)."""
+    t = x.shape[-1]
+    xt = x.transpose(1, 2)  # (B, T, C)
+    q = xt @ p["Wt"]
+    k = xt @ p["Wx"]
+    h = torch.tanh(q[:, :, None, :] + k[:, None, :, :] + p["bh"])  # (B, T, T, U)
+    e = (h @ p["Wa"])[..., 0] + p["ba"][0]
+    e = torch.exp(e - e.amax(dim=-1, keepdim=True))
+    idx = torch.arange(t, device=x.device)
+    lower = idx - attention_width // 2
+    mask = (idx[None, :] >= lower[:, None]) & (idx[None, :] < (lower + attention_width)[:, None])
+    e = torch.where(mask[None], e, torch.zeros_like(e))
     a = e / (e.sum(dim=-1, keepdim=True) + eps)
     return (a @ xt).transpose(1, 2)
 

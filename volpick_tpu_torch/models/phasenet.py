@@ -102,6 +102,10 @@ class PhaseNet(nn.Module):
             last = filters
         self.out = Conv(fr, classes, 1, gen)
 
+    @property
+    def labels(self) -> str:
+        return self.phases
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         def bn_relu(h, m):
             return F.relu(batch_norm(h, bn_params(m), _BN_EPS))

@@ -162,6 +162,10 @@ class TPUPickNet(nn.Module):
         att = torch.softmax(torch.einsum("bthd,bshd->bhts", q, k) * scale, dim=-1)
         return torch.einsum("bhts,bshd->bthd", att, v).reshape(b, t, h * dh)
 
+    @property
+    def labels(self) -> str:
+        return self.phases
+
     def forward(self, x: torch.Tensor, attn: Optional[str] = None) -> torch.Tensor:
         attn = attn if attn is not None else self.resolve_attn()
         if attn not in ("xla", "pallas"):

@@ -5,8 +5,10 @@ Port of ``volpick_tpu/ops/pallas/rescnn.py``: ``fold_res_cnn_params`` packs
 the model's pre-activation residual blocks (eval-mode BatchNorm folded into
 per-channel affines, every conv as three taps over offsets (-1, 0, +1)), and
 ``res_cnn_stack(x, packed)`` runs all blocks on x (B, C, T) → (B, C, T) with
-the activation resident on the SM. As in the JAX package it is wired into no
-model forward: it is held against the model's own res-CNN section.
+the activation resident on the SM and each conv's weights staged in shared
+memory. ``rescnn_plan(b, n_sm)`` says how the windows go over CTAs. As in the
+JAX package it is wired into no model forward: it is held against the model's
+own res-CNN section.
 
 ``res_cnn_stack`` takes the twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no other route.
@@ -15,15 +17,20 @@ tensor; there is no other route.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from volpick_tpu_torch.ops.cuda import _build
 
-MAX_CHANNELS = 64  # one thread per output channel and time group
+MAX_CHANNELS = 64  # a conv's weights lie in shared memory as 3 x 64 x 64
 MAX_TOKENS = 48  # four time groups of 12 steps, each in one thread's registers
+MAX_WINDOWS = 4  # windows a CTA: what shared memory holds beside two convs' weights
+# output channels a thread owns in the default build of csrc/rescnn.cu (RESCNN_CO)
+CHANNELS_PER_THREAD = 4
+# windows a CTA; None lets rescnn_plan choose (scripts/k6_designs.py sets it)
+WINDOWS_PER_CTA: Optional[int] = None
 
 launches = 0  # kernel launches made by res_cnn_stack on CUDA tensors
 
@@ -87,6 +94,27 @@ def res_cnn_stack_reference(x: torch.Tensor, packed: Dict[str, torch.Tensor]) ->
     return x
 
 
+def rescnn_plan(b: int, n_sm: int, wpc: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(windows a CTA, CTAs, bytes of dynamic shared memory a CTA)`` for B
+    windows on a card of ``n_sm`` SMs. A CTA stages every conv's weights once
+    for all its windows and holds an SM alone (two weight buffers are 96 KB),
+    so it takes as few windows as leave no SM with a second CTA, at most
+    ``MAX_WINDOWS``; more windows than that run in waves. ``wpc`` fixes the
+    windows a CTA instead."""
+    if b < 1 or n_sm < 1:
+        raise ValueError(f"rescnn_plan needs b >= 1 and n_sm >= 1, got {b}, {n_sm}")
+    if wpc is None:
+        wpc = min(MAX_WINDOWS, -(-b // n_sm))
+    if not 1 <= wpc <= MAX_WINDOWS:
+        raise ValueError(f"windows a CTA must be 1 ... {MAX_WINDOWS}, got {wpc}")
+    # csrc/rescnn.cu: two weight buffers, two parameter buffers of 6 x 64, two
+    # activation buffers a window of 64 rows of 56 words, each row skewed by 4
+    # words a thread's channel group
+    act_words = MAX_CHANNELS * 56 + 4 * (MAX_CHANNELS // CHANNELS_PER_THREAD)
+    words = 2 * 3 * MAX_CHANNELS * MAX_CHANNELS + 2 * 6 * MAX_CHANNELS + wpc * 2 * act_words
+    return wpc, -(-b // wpc), 4 * words
+
+
 def _check(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> None:
     if x.dim() != 3:
         raise ValueError(f"x must be (B, C, T), got {tuple(x.shape)}")
@@ -123,15 +151,19 @@ def res_cnn_stack(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Ten
     for name, a in [("x", x)] + [(k, packed[k]) for k in _KEYS]:
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if a.requires_grad and torch.is_grad_enabled():
+            raise ValueError(f"{name} requires grad: the kernel has no backward")
     out = torch.empty_like(x)
-    if b * c * t == 0:
-        return out
+    if b * c * t == 0 or packed["w1"].shape[0] == 0:
+        return out.copy_(x)
     fn = _build.function(
-        "rescnn_f32", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        "rescnn_f32", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    wpc, _, _ = rescnn_plan(b, n_sm, WINDOWS_PER_CTA)
     err = fn(
         x.data_ptr(), *(packed[k].data_ptr() for k in _KEYS), out.data_ptr(),
-        b, c, t, packed["w1"].shape[0], torch.cuda.current_stream(x.device).cuda_stream,
+        b, c, t, packed["w1"].shape[0], wpc, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"rescnn_f32 launch failed: cudaError {err}")

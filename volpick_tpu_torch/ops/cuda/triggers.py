@@ -126,6 +126,31 @@ def _scan_blocked(state, neg: float, block: int):
     return tuple(arr.reshape(b, nb * block)[:, :w] for arr in _combine(before, intra))
 
 
+def _scan_assoc(state):
+    """Inclusive scan along the last axis by the recursion that
+    ``jax.lax.associative_scan`` uses: combine neighbouring pairs (up-sweep),
+    scan the pair sums, and give every even position the scan of the pairs
+    before it combined with itself (down-sweep). Equal to ``_scan`` at every
+    position: the monoid is exactly associative."""
+    w = state[0].shape[-1]
+    if w < 2:
+        return state
+    even = tuple(arr[..., 0 : w - 1 : 2] for arr in state)
+    odd = tuple(arr[..., 1::2] for arr in state)
+    odd_scanned = _scan_assoc(_combine(even, odd))  # positions 1, 3, 5, ...
+    later_even = tuple(arr[..., 2::2] for arr in state)  # positions 2, 4, ...
+    n_later = later_even[0].shape[-1]
+    even_scanned = _combine(tuple(arr[..., :n_later] for arr in odd_scanned), later_even)
+    out = []
+    for arr, o, e in zip(state, odd_scanned, even_scanned):
+        full = torch.empty_like(arr)
+        full[..., 0] = arr[..., 0]
+        full[..., 1::2] = o
+        full[..., 2::2] = e
+        out.append(full)
+    return tuple(out)
+
+
 def _run_ends(prob: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
     """(B, W) bool: the last sample of every > t2 run (a run touching the
     row end ends at W - 1)."""
@@ -136,10 +161,12 @@ def _run_ends(prob: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
 
 
 def _scan_states(
-    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, neg: float, block: int = 0
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, neg: float, block: int = 0,
+    pairwise: bool = False,
 ) -> Scan:
     """Segmented scan in plain PyTorch: (onset, max, argmax) at every
-    position; flat for ``block`` 0, else two-level in blocks of that length."""
+    position; flat for ``block`` 0, two-level in blocks of that length
+    otherwise, and by ``_scan_assoc`` where ``pairwise``."""
     b, w = prob.shape
     above2 = prob > t2[:, None]
     above1 = prob > t1[:, None]
@@ -152,7 +179,11 @@ def _scan_states(
         torch.where(above2, prob, torch.full_like(prob, neg)),
         pos,
     )
-    _, onset, run_max, run_argmax = _scan_blocked(state, neg, block) if block else _scan(state, neg)
+    if pairwise:
+        scanned = _scan_assoc(state)
+    else:
+        scanned = _scan_blocked(state, neg, block) if block else _scan(state, neg)
+    _, onset, run_max, run_argmax = scanned
     return onset, run_max, run_argmax
 
 
@@ -204,6 +235,16 @@ def trigger_extract_blocked(
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
     return emit_picks(prob, t2, _scan_states(prob, t1, t2, float("-inf"), block), max_picks)
+
+
+def trigger_extract_assoc(
+    prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, max_picks: int
+) -> Picks:
+    """``trigger_extract_reference`` with the scan as an up-sweep and a
+    down-sweep over pairs (the JAX package's ``"assoc"`` method), on any
+    device; the same picks."""
+    _check(prob, t1, t2, max_picks)
+    return emit_picks(prob, t2, _scan_states(prob, t1, t2, float("-inf"), pairwise=True), max_picks)
 
 
 def _in_pieces(arr: torch.Tensor, piece: int, fill) -> torch.Tensor:

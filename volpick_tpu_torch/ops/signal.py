@@ -60,6 +60,23 @@ def normalize_amplitude(
     return x / (_scale(x, norm, dims) + eps)
 
 
+def normalize(
+    x: torch.Tensor,
+    norm: str = "peak",
+    do_demean: bool = True,
+    do_detrend: bool = False,
+    eps: float = EPS,
+) -> torch.Tensor:
+    """The per-window conditioning block: detrend or demean, then amplitude
+    normalisation over (C, W) jointly (the reference's eval augmentation,
+    `volpick/model/models.py:445-452`)."""
+    if do_detrend:
+        x = detrend_linear(x)
+    elif do_demean:
+        x = demean(x)
+    return normalize_amplitude(x, norm=norm, eps=eps)
+
+
 def condition_windows_from_span(
     sp: torch.Tensor,
     n_win: int,

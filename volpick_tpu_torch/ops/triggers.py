@@ -17,29 +17,59 @@ the same in both):
 - ``"shift"``: the scan itself in plain PyTorch (shift + combine passes)
   followed by the same emission, on any device;
 - ``"blocked"``: as ``"shift"``, the scan in two levels (inside blocks of 2048
-  samples, then over the blocks' summaries), on any device.
+  samples, then over the blocks' summaries), on any device;
+- ``"assoc"``: as ``"shift"``, the scan as an up-sweep over pairs and a
+  down-sweep (the recursion ``jax.lax.associative_scan`` lowers the JAX
+  package's method of that name to), on any device.
 
-All give the same picks. ``"assoc"``, the JAX package's lowering through
-``jax.lax.associative_scan``, is not ported.
+All give the same picks. ``trigger_onset_numpy`` is the host oracle of the
+trigger rule, numpy only.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from volpick_tpu_torch.ops.cuda.triggers import (
     Picks,
     emit_picks,
     trigger_extract,
+    trigger_extract_assoc,
     trigger_extract_blocked,
     trigger_extract_reference,
     trigger_scan,
 )
 
-_NOT_PORTED = ("assoc",)
+_METHODS = ("pallas_full", "pallas", "shift", "blocked", "assoc")
+
+
+def trigger_onset_numpy(prob: np.ndarray, thres1: float, thres2: float) -> List[Tuple[int, int]]:
+    """Host oracle: list of (on, off) triggers, obspy trigger_onset semantics.
+    For each maximal run of samples with prob > thres2 that holds a sample
+    with prob > thres1: (first such sample, last index of the run)."""
+    prob = np.asarray(prob)
+    above2 = prob > thres2
+    if not above2.any():
+        return []
+    # run boundaries of above2
+    d = np.diff(above2.astype(np.int8))
+    run_starts = list(np.where(d == 1)[0] + 1)
+    run_ends = list(np.where(d == -1)[0])  # inclusive last index of run
+    if above2[0]:
+        run_starts.insert(0, 0)
+    if above2[-1]:
+        run_ends.append(len(prob) - 1)
+    triggers = []
+    above1 = prob > thres1
+    for s, e in zip(run_starts, run_ends):
+        idx = np.where(above1[int(s) : int(e) + 1])[0]
+        if len(idx):
+            triggers.append((int(s) + int(idx[0]), int(e)))
+    return triggers
 
 
 def default_trigger_method() -> str:
@@ -61,11 +91,7 @@ def extract_triggers_batched(
     ``default_trigger_method()``."""
     if method is None:
         method = default_trigger_method()
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"trigger method {method!r} is not ported; use pallas_full, pallas, shift or blocked"
-        )
-    if method not in ("pallas_full", "pallas", "shift", "blocked"):
+    if method not in _METHODS:
         raise ValueError(f"unknown trigger scan method {method!r}")
     b = prob.shape[0]
     t1 = torch.as_tensor(thres1, dtype=torch.float32, device=prob.device)
@@ -81,4 +107,15 @@ def extract_triggers_batched(
         return emit_picks(prob, t2, trigger_scan(prob, t1, t2), max_picks)
     if method == "blocked":
         return trigger_extract_blocked(prob, t1, t2, max_picks)
+    if method == "assoc":
+        return trigger_extract_assoc(prob, t1, t2, max_picks)
     return trigger_extract_reference(prob, t1, t2, max_picks)
+
+
+def extract_picks_batched(
+    prob: torch.Tensor, thres1, thres2=None, max_picks: int = 32
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Peaks only: (pick_idx, pick_value, valid), each (B, max_picks), the
+    first three outputs of ``extract_triggers_batched``."""
+    idx, val, valid, _, _ = extract_triggers_batched(prob, thres1, thres2, max_picks)
+    return idx, val, valid

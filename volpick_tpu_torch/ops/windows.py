@@ -3,7 +3,8 @@
 Port of ``volpick_tpu/ops/windows.py``. Continuous streams are cut into fixed
 windows at stride = window - overlap, and per-window predictions are stacked
 back into continuous curves with edge blinding ("avg" or "max").
-``window_starts`` and ``uniform_stack_weights`` are host-side numpy.
+``window_starts``, ``uniform_stack_weights``, ``steered_window_indices`` and
+``pad_frame`` are host-side numpy.
 """
 
 from __future__ import annotations
@@ -179,4 +180,47 @@ def uniform_stack_weights(
     out = np.zeros(out_len, dtype=np.float32)
     n = min(out_len, w.size)
     out[:n] = w[:n]
+    return out
+
+
+def steered_window_indices(
+    n_samples: int,
+    start_sample: np.ndarray,
+    end_sample: np.ndarray,
+    window: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Window placement for steered evaluation (SeisBench SteeredWindow semantics).
+
+    Places a fixed-length window containing the region [start_sample, end_sample)
+    of each trace: the region is centred when possible, shifted to stay inside
+    the trace, with zero-padding when the trace is shorter than the window
+    (strategy="pad", reference `volpick/model/models.py:445-452`).
+
+    Returns (window_start, border_lo, border_hi): window_start is the offset of
+    the window in the trace, and [border_lo, border_hi) is the region's span
+    inside the window (the reference's "window_borders")."""
+    start_sample = np.asarray(start_sample, dtype=np.int64)
+    end_sample = np.asarray(end_sample, dtype=np.int64)
+    region = end_sample - start_sample
+    slack = window - region
+    w0 = start_sample - slack // 2
+    if n_samples >= window:
+        w0 = np.clip(w0, 0, n_samples - window)
+    else:
+        w0 = np.zeros_like(w0)  # pad right
+    border_lo = start_sample - w0
+    border_hi = border_lo + region
+    return w0, border_lo, border_hi
+
+
+def pad_frame(data: np.ndarray, w0: int, window: int) -> np.ndarray:
+    """Host-side framing with zero pad for out-of-range regions: data (C, W)
+    → (C, window) for the window starting at w0, which may extend beyond
+    either end of data."""
+    c, n = data.shape
+    out = np.zeros((c, window), dtype=data.dtype)
+    lo = max(w0, 0)
+    hi = min(w0 + window, n)
+    if hi > lo:
+        out[:, lo - w0 : hi - w0] = data[:, lo:hi]
     return out

@@ -108,6 +108,10 @@ class WaveformPicker:
     def in_samples(self) -> int:
         return self.model.in_samples
 
+    @property
+    def phases(self) -> List[str]:
+        return [p for p in self.model.phases]
+
     def _prob_channels(self) -> List[str]:
         """Output channel names in prediction order."""
         if self.model.name == "VolEQTransformer":

@@ -122,7 +122,7 @@ def main() -> None:
     model = load_model("eqtransformer", seed=0, device=dev,
                        fused="plstm+bandattn+pattn" if args.optin else None)
     picker = WaveformPicker(model, device=dev, use_pallas=args.optin)
-    p_attn = model.fused.endswith("+pattn")
+    p_attn = "pattn" in model.fused.split("+")
     print(f"route: fused={model.fused!r}, use_pallas={picker.use_pallas}, trigger method "
           f"{os.environ.get('VOLPICK_TRIGGER_METHOD', 'pallas_full')!r}")
     data = bench_stream_array()
