@@ -102,12 +102,32 @@
    pallas, pallas, xla; median of 10 each);
 6. cross-checks 1 station x 5 min of each against the same weights on the
    CPU (curves within 1e-4); on EQTransformer also the CPU twin of K1 on the
-   GPU curves gives exactly the kernel's picks.
+   GPU curves gives exactly the kernel's picks;
+7. trains EQTransformer at full width (6000 samples, filters 8..64, 3 BiLSTM
+   blocks, drop_rate 0.1) with the settings of
+   examples/configs/eqtransformer_vcseis.json (batch 1024, lr 1e-3, Adam,
+   EMA, stack_data, loss weights (0.05, 0.40, 0.55), peak norm, sigma 20)
+   through Trainer.fit on a synthetic pool of 2048 events and 512 noise
+   traces of 3 x 12288 samples resident on the card (data/synthetic.py's
+   arrays in RawBatchSource.from_arrays: the card machine has no h5py), 20
+   steps and one validation pass; fails unless every loss is finite, the
+   train steps launch no kernel and validation launches K2 4 times a
+   forward (counts set to 0 before, read after), every trained tensor has a
+   finite gradient, nonzero except the 14 that are zero by construction
+   (BatchNorm-cancelled biases, the attention `ba`), and moved, the
+   BatchNorm statistics moved, the EMA is exactly the rule on the recorded
+   parameters, 20 steps on one fixed batch with warmup 0 lower the loss,
+   and the gradient of 8 windows on the card is within 1e-3 of the CPU
+   port's (relative to each tensor's largest entry, in float64; the float32
+   difference printed beside it); prints the median train step and the
+   augmentation of a batch by CUDA events, samples/s and
+   torch.cuda.max_memory_allocated beside the card's name and power limit.
 
 Exits non-zero on any failure and without a CUDA device. The last two lines
 are a JSON summary of the kernels and {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -127,6 +147,12 @@ RES_B, RES_C, RES_T = 232, 64, 47
 STREAM_STATIONS, PACKET, HOP_S = 2, 1000, 30.0  # 10-second packets at 100 Hz, a pass every 30 s
 LSTM_TOL, MHA_TOL, CURVE_TOL = 1e-5, 1e-5, 1e-4
 COND_TOL, ATT_TOL, RES_TOL = 2e-5, 1e-5, 3e-4
+# phase 7: a synthetic pool on the card, about TRAIN_STEPS steps of the
+# training config, the card-vs-CPU gradient on GRAD_WINDOWS windows
+TRAIN_CONFIG = "examples/configs/eqtransformer_vcseis.json"
+TRAIN_EVENTS, TRAIN_NOISE, TRAIN_SAMPLES = 2048, 512, 12_288
+TRAIN_STEPS, TIMED_STEPS, OVERFIT_STEPS, GRAD_WINDOWS = 20, 10, 20, 8
+GRAD_TOL = 1e-3
 
 # H100 SXM data sheet: device memory rate, float32 rate outside the tensor
 # cores, and the special-function units (16 a clock an SM against 128 float32
@@ -248,6 +274,244 @@ def classify_seconds(picker, data, thresholds, kw) -> float:
     picker.classify_arrays(data, thresholds, **kw)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def structural_zero_grads(model) -> set:
+    """EQTransformer parameters whose gradient is zero by construction, in the
+    JAX package as in the port: the conv biases that a train-mode BatchNorm
+    subtracts again (res-CNN conv1, BiLSTM conv) and the attention biases
+    `ba`, which softmax's max subtraction cancels. Their gradients are
+    rounding noise."""
+    names = {f"res_cnn_stack.members.{j}.conv1.bias" for j in range(len(model.res_cnn_stack.members))}
+    names |= {f"bi_lstm_stack.members.{j}.conv.bias" for j in range(len(model.bi_lstm_stack.members))}
+    names |= {"transformer_d0.attention.ba", "transformer_d.attention.ba"}
+    return names | {f"pick_attentions.{k}.ba" for k in range(len(model.pick_attentions))}
+
+
+def train_phase(dev, card, zero_counts, read_counts) -> dict:
+    """Phase 7: EQTransformer at full width trained on the card by the port's
+    Trainer with the settings of TRAIN_CONFIG, on a synthetic pool resident on
+    the card (``RawBatchSource.from_arrays``: the card machine has no h5py, so
+    no dataset file is written). Fails on any miss of its checks."""
+    import copy
+
+    from volpick_tpu_torch.data.synthetic import synthetic_arrays
+    from volpick_tpu_torch.models import load_model
+    from volpick_tpu_torch.pipeline.augmentations import augment_train_batch, draw_augment
+    from volpick_tpu_torch.pipeline.generator import RawBatchSource, TrainGenerator
+    from volpick_tpu_torch.train.trainer import Trainer, make_augment_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, TRAIN_CONFIG)) as f:
+        config = json.load(f)
+    margs = config["model_args"]
+    batch_size = int(config["batch_size"])
+
+    # ---- the pool: events and noise traces of 3 x TRAIN_SAMPLES, on the card
+    t0 = time.perf_counter()
+    waves, meta = synthetic_arrays(n_events=TRAIN_EVENTS, n_noise=TRAIN_NOISE, n_samples=TRAIN_SAMPLES, seed=0)
+    p = np.array([m["trace_p_arrival_sample"] for m in meta], np.float32)
+    s = np.array([m["trace_s_arrival_sample"] for m in meta], np.float32)
+    is_lp = np.array([m["source_type"] == "lp" for m in meta], np.float32)
+    is_dev = np.array([m["split"] == "dev" for m in meta])
+    event = ~np.isnan(p) | ~np.isnan(s)
+
+    def source(mask):
+        return RawBatchSource.from_arrays(waves[mask], p[mask], s[mask], is_lp=is_lp[mask])
+
+    model = load_model("eqtransformer", seed=0, device=dev)
+    cfg = make_augment_config(model, margs, bool(config["stack_data"]))
+    train_gen = TrainGenerator(source(~is_dev), cfg, batch_size, eq_dataset=source(~is_dev & event),
+                               noise_dataset=source(~is_dev & ~event), seed=42, device=dev)
+    dev_gen = TrainGenerator(source(is_dev), cfg, batch_size, eq_dataset=source(is_dev & event),
+                             noise_dataset=source(is_dev & ~event), seed=43, drop_last=False, device=dev)
+    if not train_gen.device_data or not dev_gen.device_data:
+        fail("training: the trace pools are not resident on the card")
+    pool_mb = sum(src.pool_bytes for g in (train_gen, dev_gen) for src in (g.primary, g.eq, g.noise)) / 1e6
+    print(f"training: synthetic pool of {TRAIN_EVENTS} events + {TRAIN_NOISE} noise traces of 3 x "
+          f"{TRAIN_SAMPLES} samples ({int((~is_dev).sum())} train, {int(is_dev.sum())} dev), {pool_mb:.0f} MB "
+          f"of trace pools on the card, made in {time.perf_counter() - t0:.1f} s")
+
+    trainer = Trainer(model, lr=float(margs["lr"]), loss_weights=tuple(margs["loss_weights"]),
+                      ema=bool(config["ema"]), warmup_steps=int(config.get("warmup_steps", 500)),
+                      lr_scheduler=margs["lr_scheduler"], lr_scheduler_args=margs["lr_scheduler_args"],
+                      device=dev)
+    print(f"training: EQTransformer {model.in_samples} samples, filters {model.filters[0]}..{model.filters[-1]}, "
+          f"{len(model.bi_lstm_stack.members)} BiLSTM blocks, drop_rate {model.drop_rate}; {TRAIN_CONFIG}: batch "
+          f"{batch_size}, lr {margs['lr']}, Adam, EMA {config['ema']}, stack_data {config['stack_data']}, "
+          f"loss weights {margs['loss_weights']}, norm {cfg.norm}, sigma {cfg.sigma}")
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    # ---- Trainer.fit: TRAIN_STEPS steps, then one validation pass
+    epochs = -(-TRAIN_STEPS // len(train_gen))
+    losses, step_counts, step_end = [], [], []
+    fit_step, fit_eval = trainer.train_step, trainer.eval_step
+    val_batches = [0]
+
+    def recorded_step(batch, lr, generator=None):
+        loss = fit_step(batch, lr, generator)
+        losses.append(loss)
+        step_counts.append(read_counts())
+        step_end.append(time.perf_counter())
+        if len(step_end) == 1:
+            torch.cuda.synchronize()
+            step_end[0] = time.perf_counter()
+        return loss
+
+    def counted_eval(batch):
+        val_batches[0] += 1
+        return fit_eval(batch)
+
+    trainer.train_step, trainer.eval_step = recorded_step, counted_eval
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    out_dir = os.path.join(here, "chiprun_out", "train_smoke")
+    result = trainer.fit(train_gen, dev_gen, max_epochs=epochs, save_dir=out_dir, experiment="eqtransformer",
+                         check_val_every_n_epoch=epochs, hparams=config, tensorboard=False)
+    torch.cuda.synchronize()
+    t_fit_end = time.perf_counter()
+    launches = {"train": {}, "validation": read_counts()}
+    trainer.train_step, trainer.eval_step = fit_step, fit_eval
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    loss_values = [float(v) for v in losses]
+    n_steps = len(loss_values)
+    print(f"training: Trainer.fit {epochs} epochs of {len(train_gen)} steps: {n_steps} steps, losses "
+          f"{[round(v, 4) for v in loss_values]}; validation {val_batches[0]} batch(es), val_loss "
+          f"{result['history'][-1]['val_loss']:.5f}")
+    if n_steps < TRAIN_STEPS or not all(np.isfinite(loss_values)):
+        fail(f"training: {n_steps} steps with losses {loss_values}")
+    if any(any(c.values()) for c in step_counts):
+        fail(f"training: a train step launched a kernel: {[c for c in step_counts if any(c.values())][0]}")
+    launches["train"] = step_counts[-1]
+    want = dict.fromkeys(launches["validation"], 0)
+    want["lstm_multi"] = 4 * val_batches[0]
+    if val_batches[0] < 1 or launches["validation"] != want:
+        fail(f"training: validation launches {launches['validation']}, want {want} (K2 4 times a forward)")
+    if not np.isfinite(result["history"][-1]["val_loss"]):
+        fail("training: the validation loss is not finite")
+    fit_rate = batch_size * (n_steps - 1) / (t_fit_end - step_end[0])
+
+    # every trained tensor has a gradient (nonzero outside the structural
+    # zeros) and moved; the BatchNorm running statistics moved
+    zero_by_construction = structural_zero_grads(model)
+    gmax = max(float(q.grad.abs().max()) for q in model.parameters())
+    noise_max = 0.0
+    for name, q in model.named_parameters():
+        if q.grad is None or not bool(torch.isfinite(q.grad).all()):
+            fail(f"training: {name} has no finite gradient")
+        if name in zero_by_construction:
+            noise_max = max(noise_max, float(q.grad.abs().max()) / gmax)
+            continue
+        if not float(q.grad.abs().max()) > 0:
+            fail(f"training: {name} has an all-zero gradient: cut from the graph")
+        if torch.equal(q.detach(), initial[name]):
+            fail(f"training: {name} did not move")
+    stats = [k for k in initial if k.endswith(("running_mean", "running_var"))]
+    if any(torch.equal(model.state_dict()[k], initial[k]) for k in stats):
+        fail("training: a BatchNorm running statistic did not move")
+    print(f"training: {sum(1 for _ in model.parameters())} parameter tensors, all with a finite gradient; "
+          f"{len(zero_by_construction)} zero by construction (largest {noise_max:.2e} of the largest gradient), "
+          f"every other nonzero and moved; {len(stats)} BatchNorm statistics moved")
+
+    # the EMA rule on one more step, against the recorded parameters
+    batches = list(train_gen.epoch())
+    ema_before = {k: v.clone() for k, v in trainer.ema_params.items()}
+    trainer.train_step(batches[0], trainer.lr)
+    with torch.no_grad():
+        for name, q in model.named_parameters():
+            want_e = trainer.ema_decay * ema_before[name] + (1.0 - trainer.ema_decay) * q
+            if not torch.equal(trainer.ema_params[name], want_e):
+                fail(f"training: EMA of {name} is not decay * ema + (1 - decay) * param")
+        for name, b in model.named_buffers():
+            if not torch.equal(trainer.ema_params[name], b):
+                fail(f"training: EMA buffer {name} is not the model's")
+    print(f"training: EMA after one more step = {trainer.ema_decay} ema + {1 - trainer.ema_decay:.3f} params "
+          "exactly, buffers copied")
+
+    # ---- time: train steps by CUDA events; the augmentation of a batch alone
+    def events_ms(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b), out
+
+    zero_counts()
+    timed = [events_ms(lambda: trainer.train_step(batches[i % len(batches)], trainer.lr))
+             for i in range(TIMED_STEPS)]
+    if any(read_counts().values()) or not all(np.isfinite(float(v)) for _, v in timed):
+        fail("training: a timed step launched a kernel or gave a non-finite loss")
+    step_ms = float(np.median([ms for ms, _ in timed]))
+    order = train_gen.rng.permutation(len(train_gen.primary))
+
+    def one_batch():
+        raw = train_gen.raw_batches(order, 0, True)
+        cfg_w = dataclasses.replace(cfg, pre_windowed=True)
+        draws = draw_augment(train_gen.gen, batch_size, 3, cfg_w, dev, stack=True)
+        return augment_train_batch(*raw, cfg_w, draws)
+
+    aug_ms = float(np.median([events_ms(one_batch)[0] for _ in range(5)]))
+    share = aug_ms / (aug_ms + step_ms)
+    rate = batch_size / ((step_ms + aug_ms) / 1e3)
+    print(f"training on {card}: train step (forward, backward, Adam, EMA) median {step_ms:.2f} ms by CUDA events "
+          f"over {TIMED_STEPS} steps at batch {batch_size}; augmentation of a batch (crops of 5 pools, draws, "
+          f"the whole program) median {aug_ms:.2f} ms, {share:.3f} of step + augmentation; {rate:.1f} samples/s "
+          f"from the two; Trainer.fit {fit_rate:.1f} samples/s by the host clock over steps 2..{n_steps} "
+          f"(validation and checkpoints included); torch.cuda.max_memory_allocated {peak_gib:.2f} GiB")
+
+    # ---- overfit: warmup 0, OVERFIT_STEPS steps on one fixed batch
+    fresh = load_model("eqtransformer", seed=1, device=dev)
+    over = Trainer(fresh, lr=float(margs["lr"]), loss_weights=tuple(margs["loss_weights"]), warmup_steps=0,
+                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    over_losses = [float(over.train_step(batches[0], over.lr, gen)) for _ in range(OVERFIT_STEPS)]
+    print(f"training: overfit, {OVERFIT_STEPS} steps on one batch, warmup 0: losses "
+          f"{[round(v, 4) for v in over_losses]}")
+    if not (all(np.isfinite(over_losses)) and over_losses[-1] < over_losses[0]):
+        fail(f"training: the overfit steps did not lower the loss: {over_losses}")
+    del fresh, over
+
+    # ---- the gradient of one batch on the card against the CPU port, same
+    # parameters and windows: float64 on both (float32 sums that nearly
+    # cancel differ by up to ~1e-2 of a tensor's largest entry between two
+    # summation orders); the float32 difference is printed beside it
+    sub = {k: v[:GRAD_WINDOWS] for k, v in batches[0].items()}
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        grads = {}
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = copy.deepcopy(model).to(where, dtype)
+            Trainer(m, device=where).gradients({k: v.to(where, dtype) for k, v in sub.items()})
+            grads[key] = {n: q.grad.detach().double().cpu() for n, q in m.named_parameters()}
+            del m
+        gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
+        worst, worst_name = 0.0, ""
+        for name, g_cpu in grads["cpu"].items():
+            diff = float((grads["card"][name] - g_cpu).abs().max())
+            if name in zero_by_construction:
+                noise = max(float(g_cpu.abs().max()), float(grads["card"][name].abs().max()))
+                if dtype == torch.float64 and noise > 1e-9 * gmax:
+                    fail(f"training: the gradient of {name} is not zero up to rounding")
+                continue
+            rel = diff / float(g_cpu.abs().max())
+            if rel > worst:
+                worst, worst_name = rel, name
+        errs[str(dtype).split(".")[-1]] = (worst, worst_name)
+    print(f"training: gradient of {GRAD_WINDOWS} windows, card against the CPU port, same parameters: "
+          f"float64 worst {errs['float64'][0]:.2e} of a tensor's largest entry ({errs['float64'][1]}; tol "
+          f"{GRAD_TOL}); float32 worst {errs['float32'][0]:.2e} ({errs['float32'][1]}; not held to a tolerance)")
+    if not errs["float64"][0] <= GRAD_TOL:
+        fail(f"training: card gradient differs from the CPU port's by {errs['float64']}")
+    del model, trainer, batches
+    torch.cuda.empty_cache()
+    return {"steps": n_steps, "batch": batch_size, "losses": loss_values, "val_loss": result["history"][-1]["val_loss"],
+            "validation_batches": val_batches[0], "launches": launches, "step_ms": step_ms,
+            "augment_ms": aug_ms, "augment_share": share, "samples_per_s": rate, "fit_samples_per_s": fit_rate,
+            "max_memory_allocated_gib": peak_gib, "overfit_losses": over_losses,
+            "grad_rel_err_f64": errs["float64"][0], "grad_rel_err_f32": errs["float32"][0]}
 
 
 def main() -> None:
@@ -1054,6 +1318,11 @@ def main() -> None:
         print(f"{OPTIN}: summed ms of the route's kernels in one classify_arrays: "
               + ", ".join(f"{kn} {ms:.3f}" for kn, ms in optin_kernel_ms.items() if ms > 0))
 
+    # ---- 7. training at full width
+    training = train_phase(dev, card, zero_counts, read_counts)
+    by_path["eqtransformer/train step"] = training["launches"]["train"]
+    by_path["eqtransformer/validation"] = training["launches"]["validation"]
+
     def entry(name, source, replaces, path, err, ms, plain_ms, bnd, library_ms=None, **extra):
         return dict({"name": name, "route": "cuda", "source": f"volpick_tpu_torch/csrc/{source}",
                      "replaces": f"volpick_tpu/ops/pallas/{replaces}",
@@ -1120,7 +1389,8 @@ def main() -> None:
     ], "launches_by_path": by_path, "optin_classify_launches": optin_launches,
         "streaming": {"packets": n_packets, "passes": n_pass, "forwards": n_fwd, "picks": len(got_picks),
                       "packets_per_s": stream_rate, "pass_ms_median": stream_pass_ms},
-        "route_max_abs_curve_diff": route_errs}))
+        "route_max_abs_curve_diff": route_errs,
+        "training": {k: v for k, v in training.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -6,7 +6,9 @@ a fixture, not at import). Run on a GPU machine with
 trigger extraction (both forms of its launch) and trigger scan exact; LSTM (both forms), MHA (both
 entries) and additive attention (both entries) 1e-5 (the tests/test_pallas.py pins); conditioning 2e-5; the res-CNN stack
 3e-4; picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another
-order on the card).
+order on the card); a train step on the card against the CPU port in
+float64: loss 1e-10 relative, gradients 1e-6 of each tensor's largest
+entry, parameters and EMA after the step 1e-9.
 """
 
 import ctypes
@@ -23,8 +25,10 @@ from volpick_tpu_torch.ops.cuda import conditioning as cuda_cond
 from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
 from volpick_tpu_torch.ops.cuda import rescnn as cuda_rescnn
 from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
+from volpick_tpu_torch.ops.labels import detection_labels, probabilistic_labels
 from volpick_tpu_torch.ops.triggers import extract_triggers_batched
 from volpick_tpu_torch.picker import WaveformPicker
+from volpick_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -729,3 +733,95 @@ def test_optin_picker_gpu_matches_cpu(dev, monkeypatch):
         for g, r in zip(res[lab], full[lab]):
             np.testing.assert_array_equal(g, r)
     assert sum(int(v[2].sum()) for v in res.values()) > 0
+
+
+# ---- training
+def _train_batch(n, w, dtype, device):
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, 3, w))
+    x /= np.abs(x).max(axis=-1, keepdims=True)
+    on = np.stack([rng.uniform(0.1 * w, 0.5 * w, n), np.zeros(n)], axis=1)
+    on[:, 1] = on[:, 0] + rng.uniform(0.05 * w, 0.2 * w, n)
+    on = torch.as_tensor(on, dtype=torch.float32)
+    batch = {"X": torch.as_tensor(x, dtype=torch.float32),
+             "y": probabilistic_labels(on, w, noise_column=False),
+             "detections": detection_labels(on[:, 0], on[:, 1], w)}
+    return {k: v.to(device, dtype) for k, v in batch.items()}
+
+
+def test_train_step_on_the_card_matches_the_cpu_port(dev):
+    """One Trainer step (EMA on, no dropout) of a small EQTransformer on the
+    card and on the CPU from the same parameters and batch, in float64 (in
+    float32 two summation orders move gradient sums that nearly cancel by up
+    to ~1e-2 of a tensor's largest entry); the float32 step launches no
+    kernel."""
+    import copy
+
+    cpu = load_model("eqtransformer", seed=4, in_samples=1504, lstm_blocks=1, drop_rate=0.0,
+                     device="cpu").double()
+    gpu = copy.deepcopy(cpu).to(dev)
+    tc, tg = Trainer(cpu, ema=True, device="cpu"), Trainer(gpu, ema=True, device=dev)
+    lc = float(tc.train_step(_train_batch(6, 1504, torch.float64, "cpu"), 1e-3))
+    lg = float(tg.train_step(_train_batch(6, 1504, torch.float64, dev), 1e-3))
+    assert abs(lg - lc) <= 1e-10 * abs(lc)
+    zero = {f"res_cnn_stack.members.{j}.conv1.bias" for j in range(7)} | {
+        "bi_lstm_stack.members.0.conv.bias", "transformer_d0.attention.ba", "transformer_d.attention.ba",
+        "pick_attentions.0.ba", "pick_attentions.1.ba"}
+    gp = dict(gpu.named_parameters())
+    for name, q in cpu.named_parameters():
+        g_gpu = gp[name].grad.cpu()
+        if name not in zero:
+            assert (g_gpu - q.grad).abs().max().item() <= 1e-6 * q.grad.abs().max().item(), name
+        assert (gp[name].detach().cpu() - q.detach()).abs().max().item() <= 1e-9, name
+    for name, e in tc.ema_params.items():
+        assert (tg.ema_params[name].cpu() - e).abs().max().item() <= 1e-9, name
+
+    model = load_model("eqtransformer", seed=4, in_samples=1504, lstm_blocks=1, device=dev)
+    before = (cuda_lstm.launches, cuda_addattn.launches, cuda_trig.launches)
+    loss = Trainer(model, device=dev).train_step(_train_batch(6, 1504, torch.float32, dev), 1e-3,
+                                                 torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert (cuda_lstm.launches, cuda_addattn.launches, cuda_trig.launches) == before
+
+
+def test_kernel_wrappers_refuse_autograd_inputs(dev):
+    """Every CUDA wrapper raises on an input that requires grad while
+    autograd records, and runs under torch.no_grad()."""
+    g = torch.Generator(dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.rand(shape, device=dev, generator=g)
+
+    calls = {
+        "trigger_extract": (cuda_trig.trigger_extract, lambda: (r(4, 300), r(4) * 0 + 0.5, r(4) * 0 + 0.25, 8)),
+        "trigger_scan": (cuda_trig.trigger_scan, lambda: (r(4, 300), r(4) * 0 + 0.5, r(4) * 0 + 0.25)),
+        "condition_windows": (cuda_cond.condition_windows, lambda: (r(4, 3, 600),)),
+        "addattn": (cuda_addattn.addattn, lambda: (r(2, 16, 47), r(2, 47, 32), r(2, 47, 32), r(32))),
+        "addattn_x": (cuda_addattn.addattn_x, lambda: (r(2, 16, 47), r(16, 32), r(32), r(16, 32), r(32))),
+        "mha": (cuda_attn.mha, lambda: (r(2, 64, 20), r(2, 64, 20), r(2, 64, 20), 2)),
+        "mha_qkv": (cuda_attn.mha_qkv, lambda: (r(2, 20, 3, 2, 32), 0.17)),
+        "lstm_multi": (cuda_lstm.lstm_multi, lambda: (r(2, 3, 16, 47), r(2, 64, 16), r(2, 64, 16), r(2, 64))),
+        "lstm_branches": (cuda_lstm.lstm_branches,
+                          lambda: (r(3, 16, 47), r(2, 64, 16), r(2, 64, 16), r(2, 64), (False, True))),
+    }
+    for name, (fn, make) in calls.items():
+        args = make()
+        tensors = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        for i in (tensors[0], tensors[-1]):
+            bad = list(args)
+            bad[i] = args[i].clone().requires_grad_()
+            with pytest.raises(ValueError, match="no backward"):
+                fn(*bad)
+            with torch.no_grad():
+                fn(*bad)
+        fn(*args)
+    torch.cuda.synchronize()
+    # a model whose parameters require grad: eval mode on the card reaches K2
+    # and refuses; under no_grad it runs
+    model = load_model("eqtransformer", seed=0, in_samples=1504, lstm_blocks=1, device=dev)
+    x = r(2, 3, 1504)
+    with pytest.raises(ValueError, match="no backward"):
+        model(x)
+    with torch.no_grad():
+        assert len(model(x)) == 3

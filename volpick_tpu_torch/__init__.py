@@ -13,6 +13,10 @@ own copy.
                                   forwards, registry, JAX weight conversion
 - ``volpick_tpu_torch.picker`` : WaveformPicker (annotate / classify on streams),
                                   StreamingPicker (chunks in, final picks out), the numpy oracle
+- ``volpick_tpu_torch.data``   : SeisBench HDF5+CSV datasets (reader, writer), synthetic sets
+- ``volpick_tpu_torch.pipeline``: the training augmentations and the batch generator
+- ``volpick_tpu_torch.train``  : losses, schedules, EMA, checkpoints, Trainer / train(config),
+                                  the native .npz.v1 export
 """
 
 __version__ = "0.1.0"

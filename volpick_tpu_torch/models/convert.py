@@ -1,5 +1,10 @@
-"""JAX parameter trees → state dicts of the port's models, and the JAX
-trainer's native ``.npz.v1`` export read without JAX.
+"""JAX parameter trees ↔ the port's models, and the JAX trainer's native
+``.npz.v1`` export read without JAX.
+
+``jax_tree_from_model`` is the way back: a port model's parameters and
+BatchNorm statistics as the JAX ``init`` tree (numpy leaves), and
+``model_args_of`` its constructor arguments under the JAX dataclass fields;
+``train/model_io.py::export_pretrained`` writes both.
 
 EQTransformer and PhaseNet: the exact inverses of
 ``volpick_tpu/models/torch_import.py::import_eqtransformer`` /
@@ -179,6 +184,110 @@ STATE_DICT_FROM_JAX = {
     "voleqtransformer": voleqtransformer_state_dict_from_jax,
     "tpupicknet": tpupicknet_state_dict_from_jax,
 }
+
+
+# the JAX dataclass fields of each architecture that a .json.v1 records
+MODEL_FIELDS = {
+    "eqtransformer": ("in_channels", "in_samples", "classes", "phases", "norm", "sampling_rate",
+                      "lstm_blocks", "drop_rate", "component_order", "filters", "kernel_sizes",
+                      "res_cnn_kernels"),
+    "phasenet": ("in_channels", "classes", "phases", "norm", "sampling_rate", "in_samples", "depth",
+                 "kernel_size", "stride", "filters_root", "component_order"),
+    "tpupicknet": ("in_channels", "in_samples", "classes", "phases", "norm", "sampling_rate",
+                   "d_model", "n_heads", "n_layers", "mlp_ratio", "patch_stride", "component_order",
+                   "attn", "default_classify_batch"),
+}
+MODEL_FIELDS["voleqtransformer"] = MODEL_FIELDS["eqtransformer"]
+
+
+def model_args_of(model: torch.nn.Module) -> Dict:
+    """The model's constructor arguments under the JAX dataclass's field names."""
+    return {k: getattr(model, k) for k in MODEL_FIELDS[model.name.lower()]}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _conv_tree(m) -> Dict:
+    out = {"w": _np(m.weight)}
+    if getattr(m, "bias", None) is not None:
+        out["b"] = _np(m.bias)
+    return out
+
+
+def _bn_tree(m) -> Dict:
+    return {"scale": _np(m.weight), "bias": _np(m.bias), "mean": _np(m.running_mean),
+            "var": _np(m.running_var)}
+
+
+def _eqtransformer_tree(model) -> Dict:
+    def lstm(m, bidirectional=False):
+        out = {}
+        for suf, key in (("_l0", ""), ("_l0_reverse", "_rev"))[: 2 if bidirectional else 1]:
+            for torch_name, jax_name in (("weight_ih", "w_ih"), ("weight_hh", "w_hh"),
+                                         ("bias_ih", "b_ih"), ("bias_hh", "b_hh")):
+                out[f"{jax_name}{key}"] = _np(getattr(m, f"{torch_name}{suf}"))
+        return out
+
+    def attention(m):
+        return {k: _np(getattr(m, k)) for k in ("Wx", "Wt", "bh", "Wa", "ba")}
+
+    def transformer(m):
+        return {
+            "attention": attention(m.attention),
+            "norm1": {"gamma": _np(m.norm1.gamma), "beta": _np(m.norm1.beta)},
+            "ff": {lin: {"w": _np(getattr(m.ff, lin).weight), "b": _np(getattr(m.ff, lin).bias)}
+                   for lin in ("lin1", "lin2")},
+            "norm2": {"gamma": _np(m.norm2.gamma), "beta": _np(m.norm2.beta)},
+        }
+
+    tree = {
+        "encoder": [_conv_tree(c) for c in model.encoder.convs],
+        "res_cnn": [{"norm1": _bn_tree(b.norm1), "conv1": _conv_tree(b.conv1),
+                     "norm2": _bn_tree(b.norm2), "conv2": _conv_tree(b.conv2)}
+                    for b in model.res_cnn_stack.members],
+        "bilstm": [{"lstm": lstm(b.lstm, True), "conv": _conv_tree(b.conv), "norm": _bn_tree(b.norm)}
+                   for b in model.bi_lstm_stack.members],
+        "transformer_d0": transformer(model.transformer_d0),
+        "transformer_d": transformer(model.transformer_d),
+        "pick_lstms": [lstm(m) for m in model.pick_lstms],
+        "pick_attentions": [attention(m) for m in model.pick_attentions],
+        "pick_decoders": [[_conv_tree(c) for c in d.convs] for d in model.pick_decoders],
+        "pick_convs": [_conv_tree(c) for c in model.pick_convs],
+    }
+    for dk, ck in model.detection_branches:
+        tree[dk] = [_conv_tree(c) for c in getattr(model, dk).convs]
+        tree[ck] = _conv_tree(getattr(model, ck))
+    return tree
+
+
+def _phasenet_tree(model) -> Dict:
+    down = []
+    for conv_same, bn1, conv_down, bn2 in model.down_branch:
+        stage = {"conv_same": _conv_tree(conv_same), "bn1": _bn_tree(bn1)}
+        if conv_down is not None:
+            stage.update(conv_down=_conv_tree(conv_down), bn2=_bn_tree(bn2))
+        down.append(stage)
+    up = []
+    for conv_up, bn1, conv_same, bn2 in model.up_branch:
+        w = _np(conv_up.weight)  # torch (I, O, K) → JAX (O, I, K) reversed in K
+        up.append({"conv_up": {"w": np.ascontiguousarray(w.transpose(1, 0, 2)[:, :, ::-1])},
+                   "bn1": _bn_tree(bn1), "conv_same": _conv_tree(conv_same), "bn2": _bn_tree(bn2)})
+    return {"inc": _conv_tree(model.inc), "in_bn": _bn_tree(model.in_bn), "down": down, "up": up,
+            "out": _conv_tree(model.out)}
+
+
+def jax_tree_from_model(model: torch.nn.Module) -> Dict:
+    """The model's parameters and BatchNorm statistics as the JAX ``init`` tree
+    of its architecture, numpy float32 leaves: the inverse of the
+    ``*_state_dict_from_jax`` functions."""
+    arch = model.name.lower()
+    if arch in ("eqtransformer", "voleqtransformer"):
+        return _eqtransformer_tree(model)
+    if arch == "phasenet":
+        return _phasenet_tree(model)
+    return _unflatten({k: _np(v) for k, v in model.state_dict().items()})
 
 
 def load_npz_v1(json_path, npz_path) -> Tuple[str, torch.nn.Module]:

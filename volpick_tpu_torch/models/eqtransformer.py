@@ -1,4 +1,4 @@
-"""EQTransformer (Mousavi et al. 2020), eval forward in PyTorch.
+"""EQTransformer (Mousavi et al. 2020) in PyTorch, eval and train forwards.
 
 Port of ``volpick_tpu/models/eqtransformer.py``: encoder (7 convs + max
 pools) → 7 pre-activation res-CNN blocks → 3 BiLSTM blocks → 2 transformer
@@ -10,6 +10,15 @@ recurrence through ``ops/cuda/lstm.py::lstm_branches`` (both pick LSTMs in one
 merged recurrence) and the pick attention over its band only. With ``"pattn"``
 the transformer blocks' attention goes through
 ``ops/cuda/addattn.py::seq_self_attention``.
+
+In train mode (``model.train()``) the forward takes the per-branch program,
+as the JAX ``apply(train=True)`` does: plain recurrences and the dense masked
+pick attention, no kernel, every BatchNorm on the batch's statistics (the
+running statistics updated in place). Dropout sits where JAX puts it
+(spatial dropout after each res-CNN activation, dropout after each BiLSTM,
+the transformers' feed-forward hidden layer and each pick LSTM) and draws its
+masks from the ``generator`` passed to ``forward``; without one there is no
+dropout, as JAX without an ``rng``.
 
 Submodules and parameters carry the SeisBench state-dict names (the key map
 of ``volpick_tpu/models/torch_import.py::import_eqtransformer``), so a
@@ -26,21 +35,21 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from volpick_tpu_torch.models.layers import (
-    batch_norm,
     bilstm,
     conv1d,
     conv1d_same,
+    dropout,
     layer_norm_keras,
     lstm,
     max_pool1d,
     seq_self_attention,
     seq_self_attention_banded,
     seq_self_attention_masked,
+    spatial_dropout1d,
     upsample2_conv1d_same,
     upsample_nearest,
 )
-from volpick_tpu_torch.models.params import Conv, bn, uniform
-from volpick_tpu_torch.models.params import bn_params as _bn_params
+from volpick_tpu_torch.models.params import Conv, bn, norm, uniform
 from volpick_tpu_torch.ops.cuda.addattn import seq_self_attention as seq_self_attention_kernel
 from volpick_tpu_torch.ops.cuda.lstm import lstm_branches, lstm_branches_reference
 
@@ -190,8 +199,10 @@ class FeedForward(nn.Module):
         self.lin1 = Linear(c, hidden, 0.05, gen)
         self.lin2 = Linear(hidden, c, 0.05, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         f = F.relu(x.transpose(1, 2) @ self.lin1.weight.T + self.lin1.bias)
+        f = dropout(f, drop_rate, generator, self.training)
         return (f @ self.lin2.weight.T + self.lin2.bias).transpose(1, 2)
 
 
@@ -206,11 +217,12 @@ class Transformer(nn.Module):
         self.ff = FeedForward(c, gen)
         self.norm2 = LayerNormalization(c)
 
-    def forward(self, h: torch.Tensor, p_attn: bool = False) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, p_attn: bool = False, drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         attend = seq_self_attention_kernel if p_attn else seq_self_attention
         y = attend(h, self.attention.params(), eps=_ATTN_EPS)
         y = self.norm1(h + y)
-        return self.norm2(y + self.ff(y))
+        return self.norm2(y + self.ff(y, drop_rate, generator))
 
 
 class ConvStack(nn.Module):
@@ -229,10 +241,12 @@ class ResCNNBlock(nn.Module):
         self.norm2 = _bn(c)
         self.conv2 = Conv(c, c, k, gen)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        y = self.conv1.same(F.relu(batch_norm(h, _bn_params(self.norm1), _BN_EPS)))
-        y = self.conv2.same(F.relu(batch_norm(y, _bn_params(self.norm2), _BN_EPS)))
-        return h + y
+    def forward(self, h: torch.Tensor, drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = spatial_dropout1d(F.relu(norm(self.norm1, h)), drop_rate, generator, self.training)
+        y = self.conv1.same(y)
+        y = spatial_dropout1d(F.relu(norm(self.norm2, y)), drop_rate, generator, self.training)
+        return h + self.conv2.same(y)
 
 
 class BiLSTMBlock(nn.Module):
@@ -242,10 +256,11 @@ class BiLSTMBlock(nn.Module):
         self.conv = Conv(2 * hidden, hidden, 1, gen)
         self.norm = _bn(hidden)
 
-    def forward(self, h: torch.Tensor, fused="pallas") -> torch.Tensor:
+    def forward(self, h: torch.Tensor, fused="pallas", drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = bilstm(h, self.lstm.bidirectional_params(), fused=fused)
-        y = conv1d(y, self.conv.weight, self.conv.bias)
-        return batch_norm(y, _bn_params(self.norm), _BN_EPS)
+        y = dropout(y, drop_rate, generator, self.training)
+        return norm(self.norm, conv1d(y, self.conv.weight, self.conv.bias))
 
 
 class _Members(nn.Module):
@@ -261,7 +276,9 @@ class EQTransformer(nn.Module):
     (VolEQTransformer adds a second). ``fused`` picks the forward's route
     (``resolve_fused``); ``forward(x, fused=...)`` overrides it for one call,
     ``logits=True`` returns the heads before the sigmoid and ``stop_after``
-    the intermediate of a stage.
+    the intermediate of a stage. In train mode the forward is the per-branch
+    program (an explicit ``fused`` other than ``"0"`` raises) with dropout
+    from ``forward(..., generator=)``.
 
     Parameters are drawn from ``generator`` (a fresh ``torch.Generator``
     seeded 0 when omitted) with the distributions of the JAX
@@ -298,7 +315,7 @@ class EQTransformer(nn.Module):
         self.norm = norm
         self.sampling_rate = sampling_rate
         self.lstm_blocks = lstm_blocks
-        self.drop_rate = drop_rate  # training only; the eval forward has no dropout
+        self.drop_rate = drop_rate  # train mode only
         self.component_order = component_order
         self.default_args = dict(default_args or {})
         self.fused = fused
@@ -394,14 +411,26 @@ class EQTransformer(nn.Module):
         fused: Union[str, bool, None] = None,
         logits: bool = False,
         stop_after: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
     ):
         """x (B, 3, in_samples) → one (B, in_samples) curve a head. ``stop_after``
         (a diagnostic) ends the program after the named stage and returns its
         intermediate: "encoder" | "res_cnn" | "bilstm" | "transformer" (the
-        trunk, (B, 16, T)) or "pick" (the tuple of per-branch decoder inputs)."""
+        trunk, (B, 16, T)) or "pick" (the tuple of per-branch decoder inputs).
+        ``generator`` draws the dropout masks in train mode."""
         if stop_after is not None and stop_after not in STAGES:
             raise ValueError(f"stop_after must be one of {STAGES}")
-        parts = set((parse_fused(fused) if fused is not None else self.resolve_fused()).split("+"))
+        if self.training:
+            if stop_after is not None:
+                raise ValueError("stop_after is inference-only")
+            explicit = fused if fused is not None else self.fused
+            if explicit is not None and parse_fused(explicit) != PER_BRANCH:
+                raise ValueError("fused EQTransformer path is inference-only")
+            route = PER_BRANCH
+        else:
+            route = parse_fused(fused) if fused is not None else self.resolve_fused()
+        parts = set(route.split("+"))
+        rate = self.drop_rate
         fuse_lstm = "pallas" if "plstm" in parts else "lstm" in parts
         band_attn, p_attn, poly_up = "bandattn" in parts, "pattn" in parts, "polyup" in parts
         decode_mode = "grouped" if "grouped" in parts else "blockdiag" if "blockdiag" in parts else "branch"
@@ -410,14 +439,15 @@ class EQTransformer(nn.Module):
         if stop_after == "encoder":
             return h
         for block in self.res_cnn_stack.members:
-            h = block(h)
+            h = block(h, rate, generator)
         if stop_after == "res_cnn":
             return h
         for block in self.bi_lstm_stack.members:
-            h = block(h, fuse_lstm)
+            h = block(h, fuse_lstm, rate, generator)
         if stop_after == "bilstm":
             return h
-        h = self.transformer_d(self.transformer_d0(h, p_attn), p_attn)
+        h = self.transformer_d0(h, p_attn, rate, generator)
+        h = self.transformer_d(h, p_attn, rate, generator)
         if stop_after == "transformer":
             return h
 
@@ -444,7 +474,8 @@ class EQTransformer(nn.Module):
         else:
             for m, att in zip(self.pick_lstms, self.pick_attentions):
                 px = lstm(h, m.weight_ih_l0, m.weight_hh_l0, m.bias_ih_l0, m.bias_hh_l0,
-                                kernel=False)
+                          kernel=False)
+                px = dropout(px, rate, generator, self.training)
                 branch_ins.append(pick_attention(px, att))
         if stop_after == "pick":
             return tuple(branch_ins)

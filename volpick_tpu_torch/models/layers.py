@@ -1,4 +1,4 @@
-"""Functional layers of the picking trunks (PyTorch, NCW layout, eval mode).
+"""Functional layers of the picking trunks (PyTorch, NCW layout).
 
 Port of ``volpick_tpu/models/layers.py``. Tensors are (B, C, W); conv
 kernels are (O, I, K) and LSTM weights keep torch's (i, f, g, o) gate
@@ -6,7 +6,11 @@ layout, so parameters carry over from the JAX tree unchanged. The merged
 LSTM recurrence runs through ``ops/cuda/lstm.py::lstm_branches`` (a CUDA
 kernel on the card, its plain twin on the CPU); ``lstm(kernel=False)`` and
 ``bilstm(fused=True | False)`` are the JAX package's routes without the
-kernel, the same recurrences in plain PyTorch on any device.
+kernel, the same recurrences in plain PyTorch on any device. ``batch_norm``
+is the eval form; in train mode the models call their ``nn.BatchNorm1d``
+modules, whose batch statistics and running-statistics update (momentum 0.1,
+unbiased variance) are the JAX function's. ``dropout`` and
+``spatial_dropout1d`` draw their keep masks from an explicit generator.
 """
 
 from __future__ import annotations
@@ -124,6 +128,25 @@ def max_pool1d(x: torch.Tensor, k: int = 2, stride: Optional[int] = None, paddin
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsampling along time."""
     return torch.repeat_interleave(x, factor, dim=-1)
+
+
+def _drop(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool, mask_shape):
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(mask_shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool):
+    """Zero each element with probability `rate` and scale the kept ones by
+    1 / (1 - rate); the identity unless training with a generator and rate > 0."""
+    return _drop(x, rate, generator, train, x.shape)
+
+
+def spatial_dropout1d(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool):
+    """``dropout`` of whole channels of (B, C, W) (keras SpatialDropout1D)."""
+    return _drop(x, rate, generator, train, (x.shape[0], x.shape[1], 1))
 
 
 def lstm(

@@ -1,7 +1,8 @@
 """Parameter holders shared by the port's models.
 
-The models apply the functional layers of ``models/layers.py`` in eval form;
-these modules only own the parameters, under the names the state dicts use.
+The models apply the functional layers of ``models/layers.py``; these modules
+only own the parameters, under the names the state dicts use (BatchNorm is
+the exception: in train mode the module itself normalises, see ``norm``).
 Random initial values come from a ``torch.Generator`` so a seed gives the
 same model on every device.
 """
@@ -13,7 +14,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from volpick_tpu_torch.models.layers import conv1d_same
+from volpick_tpu_torch.models.layers import batch_norm, conv1d_same
 
 
 def uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:
@@ -47,9 +48,19 @@ class WB(nn.Module):
 
 
 def bn(c: int, eps: float = 1e-3) -> nn.BatchNorm1d:
-    """Holds scale/bias/running stats under torch's names; applied in eval
-    form by ``layers.batch_norm``."""
+    """Holds scale/bias/running stats under torch's names; applied by ``norm``."""
     return nn.BatchNorm1d(c, eps=eps)
+
+
+def norm(m: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm of (B, C, W) by module `m`: in eval mode ``layers.batch_norm``
+    on its running statistics; in train mode the module itself, which
+    normalises by the batch's biased variance over (B, W) and updates the
+    running statistics with momentum 0.1 and the unbiased variance, as the JAX
+    ``batch_norm(train=True)`` does."""
+    if m.training:
+        return m(x)
+    return batch_norm(x, bn_params(m), m.eps)
 
 
 def bn_params(m: nn.BatchNorm1d) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""PhaseNet (Zhu & Beroza 2019) 1D U-Net, eval forward in PyTorch.
+"""PhaseNet (Zhu & Beroza 2019) 1D U-Net in PyTorch, eval and train forwards.
 
 Port of ``volpick_tpu/models/phasenet.py``: 3→8 ``inc`` conv (k7) + BN, five
 down stages (same-conv + BN, then a stride-4 conv + BN on all but the last;
@@ -7,7 +7,10 @@ to the skip length, concat [skip, x], same-conv + BN), a 1x1 output conv and
 a softmax over the classes (P, S, N). Window 3001 samples at 100 Hz, ZNE.
 
 The stride-4 convs of stages 1-3 take the manual (left, right) pads of the
-original TF model, stage 0 a symmetric k//2. BN eps is 1e-3.
+original TF model, stage 0 a symmetric k//2. BN eps is 1e-3. In train mode
+(``model.train()``) every BatchNorm normalises by the batch's statistics and
+updates its running statistics in place, as JAX ``apply(train=True)``; the
+model has no dropout.
 
 Submodules carry the SeisBench state-dict names (``inc``, ``in_bn``,
 ``down_branch.{i}.{0..3}``, ``up_branch.{i}.{0..3}``, ``out``; the names of
@@ -24,8 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from volpick_tpu_torch.models.layers import batch_norm, conv1d, conv1d_same, conv_transpose1d
-from volpick_tpu_torch.models.params import Conv, bn, bn_params, uniform
+from volpick_tpu_torch.models.layers import conv1d, conv_transpose1d
+from volpick_tpu_torch.models.params import Conv, bn, norm, uniform
 
 # manual (left, right) pads before the stride-4 convs of stages 1..3
 _DOWN_PADS = {1: (2, 3), 2: (1, 3), 3: (2, 3)}
@@ -108,7 +111,7 @@ class PhaseNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         def bn_relu(h, m):
-            return F.relu(batch_norm(h, bn_params(m), _BN_EPS))
+            return F.relu(norm(m, h))
 
         h = bn_relu(self.inc.same(x), self.in_bn)
         skips: List[torch.Tensor] = []

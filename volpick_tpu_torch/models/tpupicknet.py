@@ -1,4 +1,4 @@
-"""TPUPickNet (the JAX package's own picker), eval forward in PyTorch.
+"""TPUPickNet (the JAX package's own picker) in PyTorch, eval and train forwards.
 
 Port of ``volpick_tpu/models/tpupicknet.py`` (v2): five stride-2 conv stages
 take 3008 samples to 94 tokens at d_model 128 (gelu after each, the outputs
@@ -15,7 +15,10 @@ are (in, out) and applied as ``y @ w + b``; conv kernels are (O, I, K).
 ``"pallas"`` is K7 (``ops/cuda/attention.py::mha_qkv``: the CUDA kernel for
 a CUDA tensor, its plain twin for a CPU tensor), which reads q, k, v in place
 from the block's (B, T, 3, H, Dh) projection. The names are the JAX
-package's, so its configs and ``VOLPICK_TPN_ATTN`` carry over.
+package's, so its configs and ``VOLPICK_TPN_ATTN`` carry over. In train mode
+(``model.train()``) the forward always takes ``"xla"``, as JAX
+``apply(train=True)`` does: K7 has no backward. The model has no BatchNorm
+and no dropout.
 """
 
 from __future__ import annotations
@@ -170,6 +173,8 @@ class TPUPickNet(nn.Module):
         attn = attn if attn is not None else self.resolve_attn()
         if attn not in ("xla", "pallas"):
             raise ValueError(f"unknown attn implementation: {attn!r}")
+        if self.training:
+            attn = "xla"
         b = x.shape[0]
         d = self.d_model
         skips = []

@@ -1,3 +1,25 @@
 """Hand-written CUDA kernels (csrc/*.cu, built by ``_build``) and their plain
 PyTorch twins. A wrapper runs its twin for CPU tensors and its kernel for CUDA
-tensors."""
+tensors. The kernels have no backward: on a CUDA tensor every wrapper refuses
+an input that requires grad while autograd records (``refuse_autograd``); the
+twins are differentiable."""
+
+from __future__ import annotations
+
+import torch
+
+
+def refuse_autograd(who: str, **tensors: torch.Tensor) -> None:
+    """Raise ValueError when autograd is recording and one of `tensors`
+    requires grad. A kernel writes into a fresh tensor through ctypes, so its
+    result would be cut from the graph and what fed it would train on no
+    gradient."""
+    if not torch.is_grad_enabled():
+        return
+    needing = [name for name, t in tensors.items() if t.requires_grad]
+    if needing:
+        raise ValueError(
+            f"{who}: {', '.join(needing)} require(s) grad, but the CUDA kernel has no backward "
+            "and its result would be cut from the autograd graph; call it under "
+            "torch.no_grad() / torch.inference_mode(), or run the model's train-mode route"
+        )

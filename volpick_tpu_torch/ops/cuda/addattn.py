@@ -30,7 +30,7 @@ from typing import Dict
 
 import torch
 
-from volpick_tpu_torch.ops.cuda import _build
+from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
 
 # what a CTA of an H100 can be given with the opt-in attribute; the kernel
 # keeps q, k, x, Wa and the (T, T) energies of its windows there (and in
@@ -138,6 +138,7 @@ def _launch(entry: str, x: torch.Tensor, operands, u: int, eps: float, project: 
     """Launch `entry` on x (B, C, T) and its other operands (all CUDA, checked
     for shape and type by the caller)."""
     global launches
+    refuse_autograd(entry, x=x, **dict(operands))
     b, c, t = x.shape
     for name, a in [("x", x)] + operands:
         if not a.is_contiguous():

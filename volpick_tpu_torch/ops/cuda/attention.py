@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from volpick_tpu_torch.ops.cuda import _build
+from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
 
 MAX_HEAD_DIM = 32  # eight float4 channel groups a head in the PV product
 MAX_TOKENS = 128  # four scores per lane in the softmax
@@ -97,6 +97,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torc
         return mha_reference(q, k, v, n_heads)
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cpu or cuda, got {q.device}")
+    refuse_autograd("mha", q=q, k=k, v=v)
     b, d, t = q.shape
     _check_limits(d // n_heads, t)
     for name, a in (("q", q), ("k", k), ("v", v)):
@@ -128,6 +129,7 @@ def mha_qkv(qkv: torch.Tensor, scale: float) -> torch.Tensor:
         return mha_qkv_reference(qkv, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"mha_qkv runs on cpu or cuda, got {qkv.device}")
+    refuse_autograd("mha_qkv", qkv=qkv)
     b, t, _, h, dh = qkv.shape
     _check_limits(dh, t)
     if not qkv.is_contiguous():

@@ -22,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from volpick_tpu_torch.ops.cuda import _build
+from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
 
 # the longest row the kernel takes (one row buffer of 48 KB less 32 B)
 MAX_SAMPLES = (48 * 1024 - 32) // 4
@@ -102,6 +102,7 @@ def condition_windows(
         return condition_windows_reference(x, detrend, norm, eps)
     if x.device.type != "cuda":
         raise ValueError(f"condition_windows runs on cpu or cuda, got {x.device}")
+    refuse_autograd("condition_windows", x=x)
     n, c, w = x.shape
     if w > MAX_SAMPLES:
         raise ValueError(f"window of {w} samples exceeds the kernel's limit {MAX_SAMPLES}")

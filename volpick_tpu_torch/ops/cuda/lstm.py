@@ -30,7 +30,7 @@ from typing import Sequence
 
 import torch
 
-from volpick_tpu_torch.ops.cuda import _build
+from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
 
 MAX_HIDDEN = 32  # a window's units are the lanes of one warp
 MAX_BRANCHES = 32  # bits of the kernel's reverse mask
@@ -109,6 +109,7 @@ def recurrence(
     g·x_strides[0] + n·x_strides[1] + s·x_strides[2] + 4u; its state goes to
     `out` at g·out_strides[0] + n·out_strides[1] + u·T + s. CUDA only."""
     global launches
+    refuse_autograd("lstm recurrence", xp=xp, w_hh=w_hh, bias=bias)
     g, _, h = w_hh.shape
     if h > MAX_HIDDEN:
         raise ValueError(f"hidden size {h} exceeds the kernel's limit {MAX_HIDDEN}")
@@ -159,6 +160,7 @@ def lstm_multi(
         return lstm_multi_reference(xs, w_ih, w_hh, bias)
     if xs.device.type != "cuda":
         raise ValueError(f"lstm_multi runs on cpu or cuda, got {xs.device}")
+    refuse_autograd("lstm_multi", xs=xs, w_ih=w_ih, w_hh=w_hh, bias=bias)
     g, b, _, t = xs.shape
     h = w_hh.shape[2]
     if not w_hh.is_contiguous():
@@ -184,6 +186,7 @@ def lstm_branches(
         return lstm_branches_reference(x, w_ih, w_hh, bias, reverse)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_branches runs on cpu or cuda, got {x.device}")
+    refuse_autograd("lstm_branches", x=x, w_ih=w_ih, w_hh=w_hh, bias=bias)
     b, _, t = x.shape
     h = w_hh.shape[2]
     if not w_hh.is_contiguous():

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from volpick_tpu_torch.ops.cuda import _build
+from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
 
 MAX_CHANNELS = 64  # a conv's weights lie in shared memory as 3 x 64 x 64
 MAX_TOKENS = 48  # four time groups of 12 steps, each in one thread's registers
@@ -151,8 +151,7 @@ def res_cnn_stack(x: torch.Tensor, packed: Dict[str, torch.Tensor]) -> torch.Ten
     for name, a in [("x", x)] + [(k, packed[k]) for k in _KEYS]:
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if a.requires_grad and torch.is_grad_enabled():
-            raise ValueError(f"{name} requires grad: the kernel has no backward")
+    refuse_autograd("res_cnn_stack", x=x, **{k: packed[k] for k in _KEYS})
     out = torch.empty_like(x)
     if b * c * t == 0 or packed["w1"].shape[0] == 0:
         return out.copy_(x)

@@ -35,7 +35,7 @@ from typing import Tuple
 
 import torch
 
-from volpick_tpu_torch.ops.cuda import _build
+from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
 
 _I32_MAX = 2**31 - 1
 # what trigger_scan reports as the max of a stretch outside any run: the
@@ -395,6 +395,7 @@ def trigger_extract(
         return trigger_extract_reference(prob, t1, t2, max_picks)
     if prob.device.type != "cuda":
         raise ValueError(f"trigger_extract runs on cpu or cuda, got {prob.device}")
+    refuse_autograd("trigger_extract", prob=prob, t1=t1, t2=t2)
     for name, t in (("prob", prob), ("t1", t1), ("t2", t2)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -446,6 +447,7 @@ def trigger_scan(prob: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor) -> Scan
         return trigger_scan_reference(prob, t1, t2)
     if prob.device.type != "cuda":
         raise ValueError(f"trigger_scan runs on cpu or cuda, got {prob.device}")
+    refuse_autograd("trigger_scan", prob=prob, t1=t1, t2=t2)
     for name, t in (("prob", prob), ("t1", t1), ("t2", t2)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
