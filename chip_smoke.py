@@ -123,6 +123,26 @@
    augmentation of a batch by CUDA events, samples/s and
    torch.cuda.max_memory_allocated beside the card's name and power limit.
 
+8. evaluates a full-width EQTransformer (seeded weights, heads stretched as
+   in 4c on its first batch's curves) on phase 7's synthetic traces through
+   data/synthetic.py's in-memory dataset: the targets of
+   generate_task0/1/23 (noise_before_events as the command line passes it),
+   eval_task0 over its default 9 thresholds at batch 256 on the dev and test
+   windows, eval_task0_true_negative_rate, eval_tasks123, opt_prob_metrics,
+   parse_task1 and parse_task23; fails unless eval_task0's sweep launches K1
+   2 times and K2 4 times a batch and nothing else (counts set to 0 before,
+   read after), each of those K2 calls (full and partial batches) is within
+   1e-5 of its twin on the same inputs, the sweep's pick lists equal
+   evaluate()'s at every threshold,
+   K1's picks on the card's own curves equal its twin's (on the card at every
+   threshold, on the CPU at the lowest) and the numpy trigger rule's, 32
+   windows' curves lie within 1e-4 of the CPU port's, the metrics CSVs have
+   the reference's columns, some threshold gives picks in a tenth of the
+   windows without one run over every region, and the parsed metrics are
+   finite; prints eval_task0's windows/s by the host clock, one sweep batch's
+   device work by CUDA events and its summed kernel time, and K1's profiler
+   row at (9 x 256, 6000), K = 64, beside its bound.
+
 Exits non-zero on any failure and without a CUDA device. The last two lines
 are a JSON summary of the kernels and {"ok": true, "device": {...}}.
 """
@@ -153,6 +173,16 @@ TRAIN_CONFIG = "examples/configs/eqtransformer_vcseis.json"
 TRAIN_EVENTS, TRAIN_NOISE, TRAIN_SAMPLES = 2048, 512, 12_288
 TRAIN_STEPS, TIMED_STEPS, OVERFIT_STEPS, GRAD_WINDOWS = 20, 10, 20, 8
 GRAD_TOL = 1e-3
+# phase 8: eval_task0's default sweep at EQTransformer's batch (K1 on 9 x 256
+# rows a phase), the card-vs-CPU curves on EVAL_CPU_WINDOWS windows
+EVAL_SETS, EVAL_THRESHOLDS, EVAL_BATCH, EVAL_K = ("dev", "test"), tuple(np.arange(0.1, 0.95, 0.1)), 256, 64
+EVAL_CPU_WINDOWS, EVAL_PICK_SHARE = 32, 0.1
+GOLDEN_METRICS = ["prob_thre", "tp_thre"] + [  # the reference's {set}_metrics.csv (`eval_taks0.py:722-783`)
+    f"{ph}_{c}" for ph in ("p", "s") for c in (
+        "TP", "FP", "FN", "precision", "recall", "F1score", "mean", "median", "std", "MAE", "MAD", "out",
+        "modified_mean", "modified_median", "modified_std", "modified_RMSE", "modified_MAE", "modified_MAD",
+        "modified_mean2", "modified_median2", "modified_std2", "modified_RMSE2", "modified_MAE2",
+        "modified_MAD2")]
 
 # H100 SXM data sheet: device memory rate, float32 rate outside the tensor
 # cores, and the special-function units (16 a clock an SM against 128 float32
@@ -276,6 +306,21 @@ def classify_seconds(picker, data, thresholds, kw) -> float:
     return time.perf_counter() - t0
 
 
+def stretch_heads(model, samples) -> None:
+    """Stretch every head's logits about their median on its curve `samples`
+    (one array a head, detection first): b' = a (b - m) - 5, w' = a w, with a
+    one-sigma deviation of the logit made 1.5. Seeded weights give nearly
+    flat curves; after this, mostly ~0.007 with isolated peaks."""
+    heads = [model.conv_d] + list(model.pick_convs)
+    with torch.no_grad():
+        for head, pr in zip(heads, samples):
+            pr = np.asarray(pr, dtype=np.float64)
+            lo_, mid_, hi_ = np.percentile(np.log(pr / (1 - pr)), [16, 50, 84])
+            a = 1.5 / float((hi_ - lo_) / 2)
+            head.bias.copy_((head.bias - float(mid_)) * a - 5.0)
+            head.weight.mul_(a)
+
+
 def structural_zero_grads(model) -> set:
     """EQTransformer parameters whose gradient is zero by construction, in the
     JAX package as in the port: the conv biases that a train-mode BatchNorm
@@ -288,14 +333,13 @@ def structural_zero_grads(model) -> set:
     return names | {f"pick_attentions.{k}.ba" for k in range(len(model.pick_attentions))}
 
 
-def train_phase(dev, card, zero_counts, read_counts) -> dict:
+def train_phase(dev, card, zero_counts, read_counts, waves, meta) -> dict:
     """Phase 7: EQTransformer at full width trained on the card by the port's
     Trainer with the settings of TRAIN_CONFIG, on a synthetic pool resident on
     the card (``RawBatchSource.from_arrays``: the card machine has no h5py, so
     no dataset file is written). Fails on any miss of its checks."""
     import copy
 
-    from volpick_tpu_torch.data.synthetic import synthetic_arrays
     from volpick_tpu_torch.models import load_model
     from volpick_tpu_torch.pipeline.augmentations import augment_train_batch, draw_augment
     from volpick_tpu_torch.pipeline.generator import RawBatchSource, TrainGenerator
@@ -309,7 +353,6 @@ def train_phase(dev, card, zero_counts, read_counts) -> dict:
 
     # ---- the pool: events and noise traces of 3 x TRAIN_SAMPLES, on the card
     t0 = time.perf_counter()
-    waves, meta = synthetic_arrays(n_events=TRAIN_EVENTS, n_noise=TRAIN_NOISE, n_samples=TRAIN_SAMPLES, seed=0)
     p = np.array([m["trace_p_arrival_sample"] for m in meta], np.float32)
     s = np.array([m["trace_s_arrival_sample"] for m in meta], np.float32)
     is_lp = np.array([m["source_type"] == "lp" for m in meta], np.float32)
@@ -514,6 +557,239 @@ def train_phase(dev, card, zero_counts, read_counts) -> dict:
             "grad_rel_err_f64": errs["float64"][0], "grad_rel_err_f32": errs["float32"][0]}
 
 
+def eval_phase(dev, card, zero_counts, read_counts, waves, meta) -> dict:
+    """Phase 8: the evaluation harness on a full-width EQTransformer with
+    seeded weights and stretched heads, on phase 7's synthetic traces read
+    through ``data/synthetic.py::synthetic_dataset`` (the card machine has no
+    h5py, so no dataset file is written). Fails on any miss of its checks."""
+    import copy
+
+    import pandas as pd
+
+    from volpick_tpu_torch.data.synthetic import synthetic_dataset
+    from volpick_tpu_torch.device import inference_work
+    from volpick_tpu_torch.eval import (
+        eval_task0, eval_tasks123, generate_task0, generate_task1, generate_task23, opt_prob_metrics,
+        parse_task1, parse_task23)
+    from volpick_tpu_torch.eval import task0 as et0
+    from volpick_tpu_torch.models import eqtransformer as port_eqt
+    from volpick_tpu_torch.models import layers, load_model
+    from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
+    from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
+    from volpick_tpu_torch.ops.triggers import trigger_onset_numpy
+    from volpick_tpu_torch.picker.stage_times import cuda_ms, profiled, self_device_us
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(here, "build", "eval_smoke")  # targets and metric CSVs; build/ is not committed
+    tdir = os.path.join(out, "targets")
+    ds = synthetic_dataset(waves, meta)
+    generate_task0(ds, tdir, noise_before_events=True)
+    generate_task1(ds, tdir, noise_before_events=True)
+    generate_task23(ds, tdir)
+    sizes = {t: len(pd.read_csv(os.path.join(tdir, f"{t}.csv"))) for t in ("task0", "task1", "task23")}
+    task0 = pd.read_csv(os.path.join(tdir, "task0.csv"))
+    evalset = task0[task0["trace_split"].isin(EVAL_SETS)].reset_index(drop=True)
+    n_win = len(evalset)
+    print(f"evaluation: targets of {len(ds)} traces: task0 {sizes['task0']} windows ({n_win} dev + test), "
+          f"task1 {sizes['task1']}, task23 {sizes['task23']}, in {time.perf_counter() - t_phase:.1f} s")
+
+    model = load_model("eqtransformer", seed=0, device=dev)
+    runner = et0._SteeredRunner(model, batch_size=EVAL_BATCH, device=dev)
+    seeded, borders = runner.prob_curves(ds, evalset.iloc[:EVAL_BATCH])
+    t = np.arange(seeded.shape[-1])[None, :]
+    stretch_heads(model, [seeded[:, ki][(t >= borders[:, :1]) & (t < borders[:, 1:2])] for ki in range(3)])
+    curves, borders = runner.prob_curves(ds, evalset)
+    region = (t >= borders[:, :1]) & (t < borders[:, 1:2])
+    if curves.shape != (n_win, 3, model.in_samples) or not np.isfinite(curves).all():
+        fail(f"evaluation: curves of shape {curves.shape} or not finite")
+
+    # ---- eval_task0 at its default sweep, launches counted; every K2 call
+    # of the path recorded, to be held against its twin afterwards
+    forwards = [0]
+    hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    k2_calls = []
+
+    def recording(*args, **kw):
+        got = cuda_lstm.lstm_branches(*args, **kw)
+        k2_calls.append((args, kw, got))
+        return got
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    callers = (layers, port_eqt)  # the two modules whose forwards call lstm_branches
+    for mod in callers:
+        mod.lstm_branches = recording
+    try:
+        eval_task0(model, ds, tdir, out, prob_thresholds=EVAL_THRESHOLDS, batch_size=EVAL_BATCH, device=dev)
+    finally:
+        for mod in callers:
+            mod.lstm_branches = cuda_lstm.lstm_branches
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = read_counts()
+    hook.remove()
+    n_batches = sum(-(-int((evalset["trace_split"] == s_).sum()) // EVAL_BATCH) for s_ in EVAL_SETS)
+    want = dict.fromkeys(launches, 0)
+    want.update(trigger_extract=2 * n_batches, lstm_multi=4 * n_batches)
+    print(f"evaluation: eval_task0 on {card}: {n_win} windows x {len(EVAL_THRESHOLDS)} thresholds in "
+          f"{eval_s * 1e3:.1f} ms = {n_win / eval_s:.1f} windows/s by the host clock; {forwards[0]} forwards "
+          f"({n_batches} batches of up to {EVAL_BATCH}); launches {launches}")
+    if forwards[0] != n_batches or launches != want:
+        fail(f"evaluation: {forwards[0]} forwards, launches {launches}, want {want} (K1 2 and K2 4 a batch)")
+    # K2 at the shapes the path gave it (full and partial batches), on the
+    # path's own inputs, against its twin
+    k2_err, k2_shapes = 0.0, set()
+    with inference_work(dev):
+        for args, kw, got in k2_calls:
+            k2_err = max(k2_err, float((got - cuda_lstm.lstm_branches_reference(*args, **kw)).abs().max()))
+            k2_shapes.add(tuple(args[0].shape))
+    print(f"evaluation: the path's {len(k2_calls)} K2 calls at x shapes {sorted(k2_shapes)} against the twin "
+          f"on the same inputs: max abs err {k2_err:.3e} (tol {LSTM_TOL})")
+    k2_n = len(k2_calls)
+    if k2_n != 4 * n_batches or not k2_err <= LSTM_TOL:
+        fail(f"evaluation: {k2_n} K2 calls recorded, max abs err {k2_err} against the twin")
+    del k2_calls
+    columns = list(pd.read_csv(os.path.join(out, "dev_metrics.csv")).columns)
+    if columns != GOLDEN_METRICS or list(pd.read_csv(os.path.join(out, "test_metrics.csv")).columns) != columns:
+        fail(f"evaluation: metrics columns {columns}")
+
+    # ---- the sweep's pick lists are the per-threshold path's, on the card's curves;
+    # the host clock of the sweep alone and of the trace pool it reads first
+    t0 = time.perf_counter()
+    src = et0.trace_source(ds)
+    source_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep = et0.evaluate_sweep(model, ds, evalset, EVAL_THRESHOLDS, batch_size=EVAL_BATCH, device=dev, source=src)
+    sweep_s = time.perf_counter() - t0
+    print(f"evaluation: host clock on {card}: evaluate_sweep over the {n_win} windows {sweep_s * 1e3:.1f} ms "
+          f"given its trace source, building that source {source_s * 1e3:.1f} ms (once an eval_task0 call); "
+          f"eval_task0 beyond its sweeps (trace source, ground truth, pick rows, metrics, CSVs) about "
+          f"{(eval_s - sweep_s) * 1e3:.1f} ms")
+    with_picks = []
+    for thr, (p_s, s_s) in zip(EVAL_THRESHOLDS, sweep):
+        p_e, s_e = et0.evaluate(model, ds, evalset, thr, batch_size=EVAL_BATCH, curves=(curves, borders),
+                                device=dev)
+        if any(not np.array_equal(a, b) for a, b in zip(p_s + s_s, p_e + s_e)):
+            fail(f"evaluation: at threshold {thr:.1f} the sweep's picks differ from evaluate()'s")
+        with_picks.append(sum(1 for a, b in zip(p_s, s_s) if len(a) or len(b)))
+
+    # ---- K1 on the card's curves: its twin and the numpy rule give its picks
+    kis = list(et0._phase_channels(model).values())
+    thr_t = torch.as_tensor(np.asarray(EVAL_THRESHOLDS, np.float32), device=dev)
+    whole_run = []  # windows whose curve stays above thr/2 over the whole region, a threshold
+    n_oracle = 0
+    for ki in kis:
+        rows = torch.as_tensor(curves[:, ki] * region, device=dev).repeat(len(EVAL_THRESHOLDS), 1).contiguous()
+        t1 = thr_t.repeat_interleave(n_win)
+        got = cuda_trig.trigger_extract(rows, t1, t1 / 2.0, EVAL_K)
+        for field, g, w in zip(("peak_idx", "peak_val", "valid", "onset", "offset"), got,
+                               cuda_trig.trigger_extract_reference(rows, t1, t1 / 2.0, EVAL_K)):
+            if not torch.equal(g, w):
+                fail(f"evaluation: K1 {field} on the card's curves differs from its twin")
+        lo = slice(0, n_win)  # the lowest threshold's rows also through the twin on the CPU
+        for field, g, w in zip(("peak_idx", "peak_val", "valid", "onset", "offset"), got,
+                               cuda_trig.trigger_extract_reference(rows[lo].cpu(), t1[lo].cpu(),
+                                                                   t1[lo].cpu() / 2.0, EVAL_K)):
+            if not torch.equal(g[lo].cpu(), w):
+                fail(f"evaluation: K1 {field} on the card's curves differs from the CPU twin")
+        idx, valid = got[0].cpu().numpy(), got[2].cpu().numpy()
+        host = rows.cpu().numpy()
+        t1_np = t1.cpu().numpy()
+        for r in range(rows.shape[0]):
+            a = np.float32(t1_np[r])
+            rule = [on + int(np.argmax(host[r, on : off + 1]))
+                    for on, off in trigger_onset_numpy(host[r], a, a / np.float32(2.0))][:EVAL_K]
+            if rule != idx[r][valid[r]].tolist():
+                fail(f"evaluation: K1 picks of row {r} differ from the numpy trigger rule")
+            n_oracle += len(rule)
+        above = (rows > (t1 / 2.0)[:, None]).cpu().numpy().reshape(len(EVAL_THRESHOLDS), n_win, -1)
+        whole_run.append([int(np.all(above[i] | ~region, axis=1).sum()) for i in range(len(EVAL_THRESHOLDS))])
+    print(f"evaluation: on the card's curves K1 equals its twin (card, all {len(EVAL_THRESHOLDS)} thresholds; "
+          f"CPU, the lowest) and the numpy trigger rule (ops/triggers.py::trigger_onset_numpy + the argmax in "
+          f"each trigger) in {n_oracle} picks; the sweep's pick lists equal evaluate()'s at every threshold; "
+          f"windows with a pick by threshold {with_picks}; windows above thr/2 over the whole region, P / S "
+          f"{whole_run}")
+    informative = [w_ >= EVAL_PICK_SHARE * n_win and min(wp[i] for wp in whole_run) < n_win
+                   for i, w_ in enumerate(with_picks)]
+    if not any(informative):
+        fail("evaluation: no threshold gives picks in a tenth of the windows without one run over every region")
+
+    # ---- the card's curves against the CPU port's, same weights
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_curves, _ = et0._SteeredRunner(cpu_model, batch_size=EVAL_CPU_WINDOWS, device="cpu").prob_curves(
+        ds, evalset.iloc[:EVAL_CPU_WINDOWS])
+    curve_err = float(np.abs(cpu_curves - curves[:EVAL_CPU_WINDOWS]).max())
+    print(f"evaluation: {EVAL_CPU_WINDOWS} windows' curves, card against the CPU port: max abs diff "
+          f"{curve_err:.3e} (tol {CURVE_TOL})")
+    if not curve_err <= CURVE_TOL:
+        fail(f"evaluation: card curves differ from the CPU port's by {curve_err}")
+    del cpu_model
+
+    # ---- one sweep batch's device work: by CUDA events, and K1's profiler row at (n_thr x 256, 6000)
+    batch = evalset.iloc[:EVAL_BATCH]
+    frames, b_borders = next(et0._steered_batches(model, src, batch, EVAL_BATCH, dev))
+    x_dev = torch.as_tensor(src.take(batch["trace_idx"].to_numpy())["x"]).to(dev)
+    w0_dev = torch.as_tensor(batch["start_sample"].to_numpy() - b_borders[:, 0]).to(dev)
+
+    def device_batch():
+        return et0._sweep_batch(model, et0.steered_frames(x_dev, w0_dev, model.in_samples, norm=model.norm),
+                                b_borders, kis, thr_t, EVAL_K)
+
+    with inference_work(dev):
+        batch_ms = cuda_ms(device_batch, iters=10)
+        _, batch_kernel_ms, events = profiled(lambda: [device_batch() for _ in range(5)])
+    k1_rows = [e for e in events if "trigger_extract_kernel" in e.key]
+    k1_n = sum(e.count for e in k1_rows)
+    k1_ms = sum(self_device_us(e) for e in k1_rows) / 1e3 / max(k1_n, 1)
+    n_rows = len(EVAL_THRESHOLDS) * EVAL_BATCH
+    k1_bound = bound(n_rows * model.in_samples * 4 + 2 * n_rows * 4 + n_rows * EVAL_K * 17,
+                     flops=8 * n_rows * model.in_samples)
+    batch_kernel_ms /= 5
+    sweep_rows = torch.as_tensor(curves[:EVAL_BATCH, kis[0]] * region[:EVAL_BATCH], device=dev).repeat(
+        len(EVAL_THRESHOLDS), 1).contiguous()
+    sweep_t1 = thr_t.repeat_interleave(EVAL_BATCH)
+    k1_plain_ms = cuda_ms(lambda: cuda_trig.trigger_extract_reference(sweep_rows, sweep_t1, sweep_t1 / 2.0, EVAL_K),
+                          iters=3)
+    if not k1_ms > 0:
+        fail("evaluation: the profiler saw no trigger_extract_kernel in a sweep batch")
+    print(f"evaluation on {card}: one sweep batch of {EVAL_BATCH} windows on the card (framing, forward, "
+          f"region mask, K1 on ({n_rows}, {model.in_samples}) rows a phase) {batch_ms:.3f} ms by CUDA events = "
+          f"{EVAL_BATCH / batch_ms * 1e3:.1f} windows/s of device work, {batch_kernel_ms:.3f} ms of summed "
+          f"kernel time under torch.profiler; K1 at ({n_rows}, {model.in_samples}), K={EVAL_K}: "
+          f"{k1_ms:.4f} ms a launch by its profiler row ({k1_n / 5:.0f} launches a batch), bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}; the kernel {k1_ms / k1_bound[0]:.1f}x), twin "
+          f"{k1_plain_ms:.4f} ms by CUDA events on the first batch's P rows")
+
+    # ---- true-negative rate, task 1/2/3 scoring and parsing
+    tnr = et0.eval_task0_true_negative_rate(model, ds, tdir, out, prob_thresholds=EVAL_THRESHOLDS,
+                                            batch_size=EVAL_BATCH, device=dev)
+    eval_tasks123(model, ds, tdir, out, batch_size=EVAL_BATCH, device=dev)
+    stats = dict(opt_prob_metrics(out), **parse_task1(out), **parse_task23(out))
+    for key in ("p_threshold", "test_p_F1score", "dev_det_auc", "test_det_f1", "dev_phase_mcc", "test_P_mae_s"):
+        if key not in stats or not np.isfinite(float(stats[key])):
+            fail(f"evaluation: {key} missing or not finite: {stats.get(key)}")
+    t23 = pd.read_csv(os.path.join(out, "test_task23.csv"))
+    if list(t23.columns[-4:]) != ["score_detection", "score_p_or_s", "p_sample_pred", "s_sample_pred"]:
+        fail(f"evaluation: task23 columns {list(t23.columns)}")
+    summary = {k: float(stats[k]) for k in ("p_threshold", "s_threshold", "test_p_F1score", "test_s_F1score",
+                                           "dev_det_auc", "test_det_f1", "dev_phase_mcc", "test_P_mae_s")
+               if k in stats}
+    tn_rate = [round(float(v), 4) for v in tnr["test"]["p_true_negative_rate"]]
+    phase_s = time.perf_counter() - t_phase
+    print(f"evaluation: true-negative rate (test, P) by threshold {tn_rate}; opt_prob_metrics + parse_task1 + "
+          f"parse_task23: {summary}; the phase took {phase_s:.1f} s")
+    del model, runner
+    torch.cuda.empty_cache()
+    return {"windows": n_win, "batches": n_batches, "launches": launches, "eval_task0_s": eval_s,
+            "windows_per_s_host": n_win / eval_s, "sweep_s": sweep_s, "source_s": source_s, "batch_ms": batch_ms,
+            "windows_per_s_device": EVAL_BATCH / batch_ms * 1e3, "batch_kernel_ms": batch_kernel_ms,
+            "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_launches_a_batch": k1_n / 5, "k1_bound": k1_bound, "k1_rows": n_rows,
+            "k2_err": k2_err, "k2_calls": k2_n, "k2_shapes": sorted(k2_shapes), "oracle_picks": n_oracle, "windows_with_picks": with_picks, "curve_err_cpu": curve_err,
+            "metrics": summary, "seconds": phase_s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -521,6 +797,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from volpick_tpu_torch.data.synthetic import synthetic_arrays
     from volpick_tpu_torch.models import eqtransformer as port_eqt
     from volpick_tpu_torch.models import load_model
     from volpick_tpu_torch.ops.cuda import _build
@@ -1125,17 +1402,8 @@ def main() -> None:
     flat_curves = picker.annotate_array(sdata, **kw)
     seeded_state = {k_: v_.clone() for k_, v_ in model.state_dict().items()}
     seeded_cut = picker.annotate_array(cut, **kw)
-    # stretch every head's logits about their median: b' = a (b - m) - 5, w' = a w
-    heads = [model.conv_d] + list(model.pick_convs)
-    with torch.no_grad():
-        for ki, head in enumerate(heads):
-            # the samples every window blinds (the first and last 500) are 0: left out
-            pr = flat_curves[:, ki, 500:-500].astype(np.float64)
-            lg = np.log(pr / (1 - pr))
-            lo_, mid_, hi_ = np.percentile(lg, [16, 50, 84])
-            a = 1.5 / float((hi_ - lo_) / 2)
-            head.bias.copy_((head.bias - float(mid_)) * a - 5.0)
-            head.weight.mul_(a)
+    # the samples every window blinds (the first and last 500) are 0: left out
+    stretch_heads(model, [flat_curves[:, ki, 500:-500] for ki in range(3)])
     curves = picker.annotate_array(sdata, **kw)
     channels = picker._prob_channels()
     thr = {lab: float(np.percentile(curves[:, i], 99.9)) for i, lab in enumerate(channels)}
@@ -1319,9 +1587,18 @@ def main() -> None:
               + ", ".join(f"{kn} {ms:.3f}" for kn, ms in optin_kernel_ms.items() if ms > 0))
 
     # ---- 7. training at full width
-    training = train_phase(dev, card, zero_counts, read_counts)
+    t0 = time.perf_counter()
+    waves, meta = synthetic_arrays(n_events=TRAIN_EVENTS, n_noise=TRAIN_NOISE, n_samples=TRAIN_SAMPLES, seed=0)
+    print(f"synthetic traces for phases 7 and 8: {len(meta)} of 3 x {TRAIN_SAMPLES} samples in "
+          f"{time.perf_counter() - t0:.1f} s")
+    training = train_phase(dev, card, zero_counts, read_counts, waves, meta)
     by_path["eqtransformer/train step"] = training["launches"]["train"]
     by_path["eqtransformer/validation"] = training["launches"]["validation"]
+
+    # ---- 8. evaluation at full width
+    evaluation = eval_phase(dev, card, zero_counts, read_counts, waves, meta)
+    by_path["eqtransformer/evaluate"] = evaluation["launches"]
+    del waves, meta
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bnd, library_ms=None, **extra):
         return dict({"name": name, "route": "cuda", "source": f"volpick_tpu_torch/csrc/{source}",
@@ -1333,19 +1610,26 @@ def main() -> None:
     print(json.dumps({"kernels": [
         # ms: the summed profiler rows of its kernels a call (one cooperative
         # launch, or two plain ones); event_ms: CUDA events around whole calls,
-        # which read the host's pace; *_short_rows at (3000, 6000), K = 64
+        # which read the host's pace; *_short_rows at (3000, 6000), K = 64;
+        # *_eval_sweep the evaluation sweep's (9 x 256, 6000), K = 64, by its
+        # profiler row, launches those of phase 8's eval_task0
         entry("trigger_extract", "trigger_extract.cu", "triggers.py:250", "eqtransformer",
               trig_err, trig_ms, trig_plain_ms, trig_bound, event_ms=trig_event_ms,
               kernel_launches_a_call=trig_n, x_bound=trig_ms / trig_bound[0],
               ms_short_rows=short_trig_ms, event_ms_short_rows=short_trig_event_ms,
               plain_ms_short_rows=short_trig_plain_ms, bound_ms_short_rows=short_trig_bound[0],
-              bound_by_short_rows=short_trig_bound[1]),
+              bound_by_short_rows=short_trig_bound[1], ms_eval_sweep=evaluation["k1_ms"],
+              plain_ms_eval_sweep=evaluation["k1_plain_ms"],
+              rows_eval_sweep=evaluation["k1_rows"], bound_ms_eval_sweep=evaluation["k1_bound"][0],
+              bound_by_eval_sweep=evaluation["k1_bound"][1],
+              launches_eval_sweep=by_path["eqtransformer/evaluate"]["trigger_extract"],
+              launches_a_batch_eval_sweep=evaluation["k1_launches_a_batch"]),
         # lstm_branches, the form the models call, at C=64 and at C=16 (*_c16).
         # ms, library_ms: summed kernel time of one call under the profiler
         # (projection included); event_ms, library_event_ms: CUDA events
         # around back-to-back calls, which read the host's pace; kernel_only_ms
         # the recurrence kernel alone; multi_event_ms the lstm_multi form
-        entry("lstm_multi", "lstm_multi.cu", "lstm.py:76", "eqtransformer", lstm_err,
+        entry("lstm_multi", "lstm_multi.cu", "lstm.py:76", "eqtransformer", max(lstm_err, evaluation["k2_err"]),
               lstm_ms[64][4], lstm_ms[64][1], lstm_bound[64], lstm_lib_ms[64][1],
               event_ms=lstm_ms[64][0], library_event_ms=lstm_lib_ms[64][0],
               kernel_only_ms=lstm_ms[64][2], multi_event_ms=lstm_ms[64][3],
@@ -1390,7 +1674,8 @@ def main() -> None:
         "streaming": {"packets": n_packets, "passes": n_pass, "forwards": n_fwd, "picks": len(got_picks),
                       "packets_per_s": stream_rate, "pass_ms_median": stream_pass_ms},
         "route_max_abs_curve_diff": route_errs,
-        "training": {k: v for k, v in training.items() if k != "launches"}}))
+        "training": {k: v for k, v in training.items() if k != "launches"},
+        "evaluation": {k: v for k, v in evaluation.items() if k not in ("launches", "k1_bound")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

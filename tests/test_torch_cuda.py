@@ -825,3 +825,45 @@ def test_kernel_wrappers_refuse_autograd_inputs(dev):
         model(x)
     with torch.no_grad():
         assert len(model(x)) == 3
+
+
+def test_eval_sweep_on_the_card_equals_the_per_threshold_path(dev, tmp_path):
+    """evaluate_sweep on the card (one forward a batch, K1 twice a batch at
+    (9 thresholds x 256, 6000), K = 64) gives exactly the pick lists of the
+    per-threshold path on the card's curves; K1 equals its twin on the
+    sweep's (2304, 6000) rows of the first batch. A full-width seeded
+    EQTransformer with its heads' logits stretched (median at -5, the 99.9th
+    percentile at 0), so that the curves have isolated peaks."""
+    from volpick_tpu_torch.data.synthetic import synthetic_arrays, synthetic_dataset
+    from volpick_tpu_torch.eval import generate_task0
+    from tests.torch_eval_common import stretch_eqt_heads
+    from volpick_tpu_torch.eval import task0 as et0
+
+    ds = synthetic_dataset(*synthetic_arrays(n_events=240, n_noise=40, n_samples=9000, seed=3))
+    targets = generate_task0(ds, tmp_path, noise_before_events=True).reset_index(drop=True)
+    assert len(targets) > 256
+    model = load_model("eqtransformer", seed=0, device=dev)
+    runner = et0._SteeredRunner(model, batch_size=256, device=dev)
+    flat, borders = runner.prob_curves(ds, targets.iloc[:256])
+    t = np.arange(flat.shape[-1])[None, :]
+    region = (t >= borders[:, :1]) & (t < borders[:, 1:2])
+    stretch_eqt_heads(model, [np.log(p / (1 - p)) for p in (flat[:, ki][region] for ki in range(3))])
+    thresholds = tuple(np.arange(0.1, 0.95, 0.1))
+    curves = runner.prob_curves(ds, targets)
+    before = (cuda_trig.launches, cuda_lstm.launches)
+    sweep = et0.evaluate_sweep(model, ds, targets, thresholds, batch_size=256, device=dev)
+    n_batches = -(-len(targets) // 256)
+    assert (cuda_trig.launches - before[0], cuda_lstm.launches - before[1]) == (2 * n_batches, 4 * n_batches)
+    n_picks = 0
+    for thr, (p_s, s_s) in zip(thresholds, sweep):
+        p_e, s_e = et0.evaluate(model, ds, targets, thr, curves=curves, device=dev)
+        for a, b in zip(p_s + s_s, p_e + s_e):
+            np.testing.assert_array_equal(a, b)
+            n_picks += len(a)
+    assert n_picks > len(targets)
+
+    preds = torch.as_tensor(curves[0][:256, 1] * region, device=dev)
+    rows = preds.repeat(len(thresholds), 1).contiguous()
+    t1 = torch.as_tensor(np.asarray(thresholds, np.float32), device=dev).repeat_interleave(256)
+    assert rows.shape == (2304, flat.shape[-1])
+    _assert_extract_equals_twin(rows, t1, t1 / 2.0, 64)

@@ -282,7 +282,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "for want in ('core.stream', 'core.picks', 'picker.streaming', 'picker.oracle',\n"
         "             'picker.stage_times', 'ops.cuda.addattn', 'ops.cuda.conditioning',\n"
-        "             'ops.cuda.rescnn', 'ops.cuda.triggers', 'ops.cuda.lstm', 'ops.cuda.attention'):\n"
+        "             'ops.cuda.rescnn', 'ops.cuda.triggers', 'ops.cuda.lstm', 'ops.cuda.attention',\n"
+        "             'eval.task0', 'eval.task123', '__main__'):\n"
         "    assert 'volpick_tpu_torch.' + want in sys.modules, want\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'volpick_tpu')]\n"
         "print('BAD', sorted(bad))\n"

@@ -3,7 +3,9 @@
 Port of ``volpick_tpu/data/synthetic.py`` (a copy: numpy only, the same seed
 gives the same arrays and metadata as the JAX package). ``synthetic_arrays``
 returns the easy generator's traces in memory, for a machine without
-``h5py`` or when no file is wanted.
+``h5py`` or when no file is wanted, and ``ArrayDataset`` reads such arrays
+the way the evaluation harness and ``RawBatchSource`` read a dataset file
+(port-only: the JAX package has no in-memory dataset).
 
 Two generators, same on-disk format (SeisBench HDF5+CSV):
 
@@ -104,6 +106,40 @@ def synthetic_arrays(
         waves[i] = data
         meta.append(md)
     return waves, meta
+
+
+class ArrayDataset:
+    """A read-only dataset over traces in memory, with the reading interface
+    of ``data/dataset.py::WaveformDataset``: ``metadata`` (a DataFrame of
+    the meta dicts, with ``trace_chunk`` "" as a single-chunk dataset file
+    gives it), ``sampling_rate``, ``len()`` and ``get_sample(i)``.
+    ``synthetic_dataset`` builds one that reads like the file
+    ``make_synthetic_dataset`` writes."""
+
+    def __init__(self, waveforms: np.ndarray, metadata: List[dict], sampling_rate: float = 100.0):
+        import pandas as pd
+
+        self.waveforms = waveforms
+        self.metadata = pd.DataFrame(metadata)
+        self.metadata["trace_chunk"] = ""
+        self.sampling_rate = sampling_rate
+
+    def __len__(self):
+        return len(self.metadata)
+
+    def get_sample(self, idx: int) -> Tuple[np.ndarray, dict]:
+        return self.waveforms[idx], self.metadata.iloc[idx].to_dict()
+
+
+def synthetic_dataset(waveforms: np.ndarray, metadata: List[dict], sampling_rate: float = 100.0) -> ArrayDataset:
+    """``ArrayDataset`` over ``synthetic_arrays``' output, each trace renamed
+    to the reference ``WaveformDataWriter`` gives it in the file
+    ``make_synthetic_dataset`` writes from the same arguments (traces of one
+    shape go to the writer's buckets of 1024 in order: "bucket<k>$<i>,:C,:W"),
+    so that evaluation targets name the same traces either way."""
+    n, c, w = waveforms.shape
+    meta = [dict(md, trace_name=f"bucket{i // 1024}${i % 1024},:{c},:{w}") for i, md in enumerate(metadata)]
+    return ArrayDataset(waveforms, meta, sampling_rate)
 
 
 def make_synthetic_dataset(

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -20,3 +22,21 @@ def resolve_device(device, who: str) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"{who}: device must be cpu or cuda, got {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def inference_work(device: torch.device):
+    """Inference mode and, on CUDA, float32 parity: cuDNN convolutions and
+    matmuls default to TF32 otherwise. The process-wide TF32 flags are
+    restored on exit."""
+    flags = (torch.backends.cudnn, "allow_tf32"), (torch.backends.cuda.matmul, "allow_tf32")
+    saved = [getattr(m, a) for m, a in flags]
+    if device.type == "cuda":
+        for m, a in flags:
+            setattr(m, a, False)
+    try:
+        with torch.inference_mode():
+            yield
+    finally:
+        for (m, a), v in zip(flags, saved):
+            setattr(m, a, v)

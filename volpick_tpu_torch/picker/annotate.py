@@ -29,7 +29,6 @@ after), so results stay comparable with the CPU and the JAX reference.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -38,7 +37,7 @@ import torch
 
 from volpick_tpu_torch.core.picks import ClassifyOutput, Detection, Pick, PickList
 from volpick_tpu_torch.core.stream import Stream, Trace, UTC, group_streams_by_instrument
-from volpick_tpu_torch.device import resolve_device
+from volpick_tpu_torch.device import inference_work, resolve_device
 from volpick_tpu_torch.ops.cuda.conditioning import condition_windows
 from volpick_tpu_torch.ops.signal import (
     condition_windows_from_span,
@@ -124,23 +123,6 @@ class WaveformPicker:
         return int(getattr(self.model, "default_classify_batch", 256))
 
     # ------------------------------------------------------------ device path
-    @contextlib.contextmanager
-    def _device_work(self):
-        """Inference mode and, on CUDA, float32 parity: cuDNN convolutions and
-        matmuls default to TF32 otherwise. The process-wide TF32 flags are
-        restored on exit."""
-        flags = (torch.backends.cudnn, "allow_tf32"), (torch.backends.cuda.matmul, "allow_tf32")
-        saved = [getattr(m, a) for m, a in flags]
-        if self.device.type == "cuda":
-            for m, a in flags:
-                setattr(m, a, False)
-        try:
-            with torch.inference_mode():
-                yield
-        finally:
-            for (m, a), v in zip(flags, saved):
-                setattr(m, a, v)
-
     def _apply_model(self, frames: torch.Tensor) -> torch.Tensor:
         """Conditioned (N, C, window) windows → (N, K, window) float32 probabilities."""
         out = self.model(frames)
@@ -339,7 +321,7 @@ class WaveformPicker:
         # the noise row never triggers; any other missing label is a caller
         # mistake and fails loudly
         thr = [thresholds.get(lab, 2.0) if lab == "N" else thresholds[lab] for lab in channels]
-        with self._device_work():
+        with inference_work(self.device):
             curves = self._curves(
                 self._to_device(data), starts, padded_total, tuple(blinding), stacking,
                 batch_size, stride, flush_start,
@@ -371,7 +353,7 @@ class WaveformPicker:
         if overlap is None:
             overlap = window // 2
         data, padded_total, starts, flush_start = self._plan_windows(data, overlap)
-        with self._device_work():
+        with inference_work(self.device):
             curves = self._curves(
                 self._to_device(data), starts, padded_total, tuple(blinding), stacking,
                 batch_size, window - overlap, flush_start,

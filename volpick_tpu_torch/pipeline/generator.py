@@ -13,20 +13,24 @@ thread prepares the next batches while the consumer trains.
 
 ``pandas`` is imported only where metadata is read from a dataset;
 ``RawBatchSource.from_arrays`` builds a source from arrays in memory.
-The steered evaluation helpers of the JAX module wait for the evaluation
-slice.
+
+The evaluation harness (``eval/``) frames its windows with the steered
+helpers at the end: ``steered_window_offsets`` places each window on the
+host, ``steered_frames`` cuts and conditions them on the device, and
+``eval_batch`` is the per-trace numpy version of both, their reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from volpick_tpu_torch.device import resolve_device
+from volpick_tpu_torch.ops.signal import demean, detrend_linear, normalize_amplitude
 from volpick_tpu_torch.pipeline.augmentations import AugmentConfig, augment_train_batch, draw_augment
 
 # metadata column → phase map (reference `volpick/model/models.py:26-31`)
@@ -529,3 +533,74 @@ class TrainGenerator:
                 t.join(timeout=0.1)
         if err:
             raise err[0]
+
+
+def steered_frames(x: torch.Tensor, w0: torch.Tensor, window: int, detrend: bool = False,
+                   norm: str = "peak") -> torch.Tensor:
+    """Steered framing and conditioning on the device.
+
+    x: (B, C, L) raw zero-padded trace buffers; w0: (B,) window starts, as
+    ``steered_window_offsets`` gives them. Returns the conditioned (B, C,
+    window) frames: each row's `window` samples from w0 (zero outside the
+    buffer) in one gather, demeaned (or detrended), then normalised per
+    channel. The JAX module pads the buffer by `window` on both sides and
+    slices it, which clamps a start to [-window, L]; so does this."""
+    b, c, length = x.shape
+    start = w0.to(device=x.device, dtype=torch.long).clamp(-window, length)
+    pos = start[:, None] + torch.arange(window, device=x.device)[None, :]  # (B, window)
+    valid = (pos >= 0) & (pos < length)
+    frames = torch.gather(x, 2, pos.clamp(0, length - 1)[:, None, :].expand(b, c, window))
+    frames = torch.where(valid[:, None, :], frames, torch.zeros((), dtype=x.dtype, device=x.device))
+    frames = detrend_linear(frames) if detrend else demean(frames)
+    return normalize_amplitude(frames, norm=norm, per_channel=True)
+
+
+def steered_window_offsets(
+    lens: np.ndarray, start_samples: np.ndarray, end_samples: np.ndarray, window: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """SteeredWindow placement over a batch of traces of their own lengths:
+    centre the [start, end) region, clip the window into the trace, zero-pad
+    a trace shorter than the window. Returns (w0 (B,), borders (B, 2)), the
+    region's span inside each window."""
+    ss = np.asarray(start_samples, dtype=np.int64)
+    es = np.asarray(end_samples, dtype=np.int64)
+    lens = np.asarray(lens, dtype=np.int64)
+    region = es - ss
+    w0 = ss - (window - region) // 2
+    w0 = np.clip(w0, 0, np.maximum(lens - window, 0))
+    border_lo = ss - w0
+    return w0, np.stack([border_lo, border_lo + region], axis=1)
+
+
+def eval_batch(
+    dataset,
+    indices: Sequence[int],
+    window: int,
+    start_samples: Sequence[int],
+    end_samples: Sequence[int],
+    norm: str = "peak",
+    detrend: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Steered evaluation batch on the host, trace by trace (the reference's
+    SteeredWindow + Normalize eval augmentations, `models.py:445-452`):
+    (X (B, C, window) conditioned float32, window_borders (B, 2))."""
+    from volpick_tpu_torch.ops.windows import pad_frame, steered_window_indices
+
+    xs, borders = [], []
+    for idx, ss, es in zip(indices, start_samples, end_samples):
+        data, _ = dataset.get_sample(int(idx))
+        w0, lo, hi = steered_window_indices(data.shape[-1], np.array([ss]), np.array([es]), window)
+        xs.append(pad_frame(data, int(w0[0]), window))
+        borders.append((int(lo[0]), int(hi[0])))
+    x = np.stack(xs).astype(np.float32)
+    if detrend:
+        t = np.arange(window) - (window - 1) / 2
+        slope = ((x - x.mean(-1, keepdims=True)) * t).sum(-1, keepdims=True) / (t * t).sum()
+        x = x - x.mean(-1, keepdims=True) - slope * t
+    else:
+        x = x - x.mean(-1, keepdims=True)
+    if norm == "peak":
+        x = x / (np.abs(x).max(-1, keepdims=True) + 1e-10)
+    else:
+        x = x / (x.std(-1, keepdims=True) + 1e-10)
+    return x, np.asarray(borders, dtype=np.int64)
