@@ -49,7 +49,13 @@
    largest of the three) and, for K2 and K7, the time of the one PyTorch call
    that computes the same function (torch.nn.LSTM(bidirectional=True);
    F.scaled_dot_product_attention on views of the same projection):
-   yardsticks only, the port calls neither;
+   yardsticks only, the port calls neither. Then the bf16 entries of K2
+   (lstm_branches and lstm_multi at C 64 and 16), K5 (addattn_x and addattn)
+   and K7 (mha_qkv and mha) at the same shapes against their bf16 twins:
+   within one bf16 ulp (|d| <= 2^-7 |twin| + 1e-6), each timed by its
+   profiler row beside its bound (bf16 operands at 2 bytes an element, the
+   bf16 projection of K2 at the tensor cores' rate) and, for K2 and K7, the
+   same yardsticks in bf16;
 4. drives every ported picker at full width with seeded random weights on
    the bench stream (8 stations x 20 min at 100 Hz) through
    WaveformPicker.classify, with the launch counts set to 0 just before and
@@ -99,7 +105,12 @@
    torch.profiler (with the call's aten::copy_ and aten::mul launches, which
    set TPUPickNet's "pallas" route beside its "xla" route), and times
    TPUPickNet's two attention routes once more on one model in turns (xla,
-   pallas, pallas, xla; median of 10 each);
+   pallas, pallas, xla; median of 10 each); phasenet, tpupicknet/pallas and
+   eqtransformer/optin also run one classify_arrays through a
+   precision="bfloat16" picker on the same model: launches as in float32
+   with the bf16 instantiations of K7, K5 and K2 (K4, K3 and K1 stay
+   float32), curves within 0.1 of the float32 ones (the pin of
+   tests/test_torch_precision.py), summed kernel time beside float32's;
 6. cross-checks 1 station x 5 min of each against the same weights on the
    CPU (curves within 1e-4); on EQTransformer also the CPU twin of K1 on the
    GPU curves gives exactly the kernel's picks;
@@ -143,6 +154,22 @@
    device work by CUDA events and its summed kernel time, and K1's profiler
    row at (9 x 256, 6000), K = 64, beside its bound.
 
+9. picks the bench stream from files: 7 stations written to miniSEED
+   (write_mseed, float32 encoding) and one to SAC (write_sac), read back
+   exactly; a full-width EQTransformer (seeded, heads stretched as in 4c)
+   exported with export_pretrained under $VOLPICK_TPU_MODELS; then
+   volpick_tpu_torch.__main__.main(["pick", *files, "--weights", ...,
+   "--overlap", "5500", "--precision", p, "--output", csv, "--device", ...])
+   in-process for p = float32 and bfloat16. Fails unless each run launches
+   K1 once and K2 4 times a forward and nothing else (under bf16 the K2
+   launches are the bf16 instantiation), the float32 CSV's picks are those
+   of WaveformPicker.classify on the in-memory stream, the seeded model's
+   bf16 curves lie within 0.1 of its float32 curves, and the strongest P
+   pick of each station agrees between the two CSVs by the JAX package's
+   rule (within 10 samples and 0.05 in value); prints the read time, the
+   classify_arrays windows/s by the host clock and the summed kernel time of
+   one classify_arrays under torch.profiler in both precisions.
+
 Exits non-zero on any failure and without a CUDA device. The last two lines
 are a JSON summary of the kernels and {"ok": true, "device": {...}}.
 """
@@ -166,6 +193,12 @@ ATT_B, ATT_C, ATT_T, ATT_U = 232, 16, 47, 32
 RES_B, RES_C, RES_T = 232, 64, 47
 STREAM_STATIONS, PACKET, HOP_S = 2, 1000, 30.0  # 10-second packets at 100 Hz, a pass every 30 s
 LSTM_TOL, MHA_TOL, CURVE_TOL = 1e-5, 1e-5, 1e-4
+# the bf16 entries against their bf16 twins: one bf16 ulp (2^-7 of the value
+# bounds it from above); bf16 curves against float32 ones: the CPU test's pin
+# (tests/test_torch_precision.py); the strongest P pick of a station in the
+# two precisions: the JAX package's rule (tests/test_picker.py)
+BF16_ULP, BF16_ABS, BF16_CURVE_TOL = 2.0 ** -7, 1e-6, 0.1
+PICK_SAMPLES, PICK_VALUE = 10, 0.05
 COND_TOL, ATT_TOL, RES_TOL = 2e-5, 1e-5, 3e-4
 # phase 7: a synthetic pool on the card, about TRAIN_STEPS steps of the
 # training config, the card-vs-CPU gradient on GRAD_WINDOWS windows
@@ -189,8 +222,11 @@ GOLDEN_METRICS = ["prob_thre", "tp_thre"] + [  # the reference's {set}_metrics.c
 # lanes doing a multiply-add each: 67e12 / 2 / 8)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 PEAK_SFU = PEAK_F32 / 16
+PEAK_BF16 = 989e12  # dense bf16 on the tensor cores (the bf16 projections of K2)
 
 OPTIN = "eqtransformer/optin"
+# the paths phase 5 also runs with precision="bfloat16" (phase 9 runs the default EQTransformer one)
+BF16_PATHS = ("phasenet", "tpupicknet/pallas", OPTIN)
 # (label, arch, model kwargs, picker kwargs, environment, overlap, blinding, batch)
 PATHS = [
     ("eqtransformer", "eqtransformer", {}, {}, {}, 5500, (500, 500), 256),
@@ -207,13 +243,14 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def bound(n_bytes: float, flops: float = 0.0, sfu: float = 0.0):
+def bound(n_bytes: float, flops: float = 0.0, sfu: float = 0.0, bf16_flops: float = 0.0):
     """(ms, "bytes" | "operations"): the least time the card could take, each
     input byte read once and each output byte written once, float32
-    operations at the non-tensor-core rate and transcendentals (tanh, exp,
-    sigmoid) one each at the special-function units' rate."""
+    operations at the non-tensor-core rate, bf16 matrix products at the
+    tensor cores' rate and transcendentals (tanh, exp, sigmoid) one each at
+    the special-function units' rate."""
     t_bytes = n_bytes / PEAK_BYTES
-    t_ops = max(flops / PEAK_F32, sfu / PEAK_SFU)
+    t_ops = max(flops / PEAK_F32 + bf16_flops / PEAK_BF16, sfu / PEAK_SFU)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -294,6 +331,29 @@ def trigger_curves(rng, step: int, piece: int):
         x = np.convolve(rng.random(w), np.ones(width) / width, mode="same")
         rows.append(((x - x.min()) / (x.max() - x.min() + 1e-9)).astype(np.float32))
     return np.stack(rows), n_fixed
+
+
+def cudnn_ms(events) -> float:
+    """Summed device ms of cuDNN's kernels in a profiler's events: its
+    convolutions (implicit_convolve_sgemm, the tensor cores' xmma fprop) and
+    the layout transposes it adds around the bf16 ones."""
+    from volpick_tpu_torch.picker.stage_times import self_device_us
+
+    return sum(self_device_us(e) for e in events if str(e.device_type).endswith("CUDA")
+               and any(w in e.key.lower() for w in ("conv", "xmma", "cudnn"))) / 1e3
+
+
+def ulp_check(got, want, what: str) -> float:
+    """Fail unless bf16 `got` is within one bf16 ulp of its bf16 twin `want`
+    (|d| <= 2^-7 |want| + 1e-6); the largest |d|."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16 or got.shape != want.shape:
+        fail(f"{what}: {got.dtype} {tuple(got.shape)} against the twin's {want.dtype} {tuple(want.shape)}")
+    d = (got.float() - want.float()).abs()
+    over = d - (BF16_ULP * want.float().abs() + BF16_ABS)
+    if not bool(torch.isfinite(got.float()).all()) or float(over.max()) > 0:
+        fail(f"{what}: {int((over > 0).sum())} elements more than one bf16 ulp from the twin "
+             f"(largest |d| {float(d.max()):.3e})")
+    return float(d.max())
 
 
 def classify_seconds(picker, data, thresholds, kw) -> float:
@@ -790,6 +850,195 @@ def eval_phase(dev, card, zero_counts, read_counts, waves, meta) -> dict:
             "metrics": summary, "seconds": phase_s}
 
 
+def pick_phase(dev, card, zero_counts, read_counts, data, t_start) -> dict:
+    """Phase 9: the file-to-picks path at full width. The bench stream goes
+    to files (7 stations to miniSEED through write_mseed, float32 encoding,
+    one to SAC through write_sac) and is read back; a full-width
+    EQTransformer with heads stretched as in 4c is exported with
+    export_pretrained and picked from the files through the command line's
+    main(["pick", ...]) in both precisions, the launch counts set to 0 just
+    before and read just after each run."""
+    import csv
+    import shutil
+    import tempfile
+
+    from volpick_tpu_torch import __main__ as cli
+    from volpick_tpu_torch.core.sacio import read_sac, write_sac
+    from volpick_tpu_torch.io import read_mseed, write_mseed
+    from volpick_tpu_torch.models import load_model
+    from volpick_tpu_torch.models.eqtransformer import EQTransformer
+    from volpick_tpu_torch.ops.windows import window_starts
+    from volpick_tpu_torch.picker import UTC, Stream, Trace, WaveformPicker
+    from volpick_tpu_torch.picker.stage_times import SR, profiled, self_device_us
+    from volpick_tpu_torch.train.model_io import export_pretrained
+
+    stations, _, n = data.shape
+    overlap, blinding, batch = 5500, (500, 500), 256
+    kw = dict(overlap=overlap, blinding=blinding, batch_size=batch)
+    tmp = tempfile.mkdtemp(prefix="volpick_pick_")
+    saved_models = os.environ.get("VOLPICK_TPU_MODELS")
+    try:
+        # ---- the stream as files, and back
+        files = []
+        for s_ in range(stations):
+            trs = [Trace(data[s_, ci].copy(), dict(network="XV", station=f"S{s_:02d}", channel=f"HH{comp}",
+                                                   sampling_rate=SR, starttime=t_start))
+                   for ci, comp in enumerate("ZNE")]
+            if s_ < stations - 1:
+                files.append(os.path.join(tmp, f"S{s_:02d}.mseed"))
+                write_mseed(Stream(trs), files[-1], encoding="float32")
+            else:
+                for tr in trs:
+                    files.append(os.path.join(tmp, f"S{s_:02d}.{tr.stats.channel}.sac"))
+                    write_sac(tr, files[-1])
+        t0 = time.perf_counter()
+        back = Stream()
+        for path in files:
+            if path.endswith(".sac"):
+                back.append(read_sac(path))
+            else:
+                back += read_mseed(path)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        file_mb = sum(os.path.getsize(p_) for p_ in files) / 1e6
+        seen = set()
+        for tr in back:
+            s_, ci = int(tr.stats.station[1:]), "ZNE".index(tr.stats.channel[-1])
+            seen.add((s_, ci))
+            # SAC keeps the sample interval as a float32
+            if (tr.stats.starttime.timestamp != t_start.timestamp
+                    or np.float32(1.0 / tr.stats.sampling_rate) != np.float32(1.0 / SR)
+                    or not np.array_equal(np.asarray(tr.data, np.float64), data[s_, ci].astype(np.float64))):
+                fail(f"pick: {tr.id} read back from its file is not the array written")
+        if len(back) != 3 * stations or len(seen) != 3 * stations:
+            fail(f"pick: {len(back)} traces read back from {len(files)} files, want {3 * stations}")
+        print(f"pick: {stations} stations x 3 x {n} samples written to {stations - 1} miniSEED files "
+              f"(float32) and 3 SAC files, {file_mb:.1f} MB, read back exactly in {read_ms:.1f} ms "
+              f"(host clock)")
+
+        # ---- the weights: full width, heads stretched, exported
+        model = load_model("eqtransformer", seed=0, device=dev)
+        picker = WaveformPicker(model, device=dev)
+        flat = picker.annotate_array(data, **kw)
+        # bf16 against float32 on the seeded heads, where the CPU test's pin
+        # applies: the stretch below multiplies a head's logit by up to a few
+        # hundred, and with it the bf16 rounding of the features under it
+        seed_err = float(np.abs(WaveformPicker(model, device=dev, precision="bfloat16").annotate_array(
+            data, **kw) - flat).max())
+        if not seed_err <= BF16_CURVE_TOL:
+            fail(f"pick: bf16 curves of the seeded model {seed_err} from its float32 curves "
+                 f"(tol {BF16_CURVE_TOL})")
+        stretch_heads(model, [flat[:, ki, 500:-500] for ki in range(3)])
+        gains = [float(h.weight.abs().max()) for h in [model.conv_d] + list(model.pick_convs)]
+        curves32 = picker.annotate_array(data, **kw)
+        channels = picker._prob_channels()
+        thr = {lab: float(np.percentile(curves32[:, i], 99.9)) for i, lab in enumerate(channels)}
+        export_pretrained(model, os.path.join(tmp, "models"), name="smoke", default_args={
+            "detection_threshold": thr["Detection"], "P_threshold": thr["P"], "S_threshold": thr["S"]})
+        os.environ["VOLPICK_TPU_MODELS"] = os.path.join(tmp, "models")
+        mem = Stream([Trace(data[s_, ci], dict(network="XV", station=f"S{s_:02d}", channel=f"HH{comp}",
+                                               sampling_rate=SR, starttime=t_start))
+                      for s_ in range(stations) for ci, comp in enumerate("ZNE")])
+        ref = picker.classify(mem, P_threshold=thr["P"], S_threshold=thr["S"],
+                              detection_threshold=thr["Detection"], **kw)
+        ref_rows = [[p_.trace_id, p_.phase, p_.peak_time.isoformat(), f"{p_.peak_value:.4f}",
+                     p_.start_time.isoformat(), p_.end_time.isoformat()] for p_ in ref.picks]
+
+        # ---- python -m volpick_tpu_torch pick, in-process, in both precisions
+        forwards = [0]
+
+        def count(mod, *_):
+            forwards[0] += isinstance(mod, EQTransformer)
+
+        rows_of, launches_of, pick_s = {}, {}, {}
+        for precision in ("float32", "bfloat16"):
+            out_csv = os.path.join(tmp, f"picks_{precision}.csv")
+            handle = torch.nn.modules.module.register_module_forward_hook(count)
+            forwards[0] = 0
+            zero_counts()
+            t0 = time.perf_counter()
+            cli.main(["pick", *files, "--weights", "smoke", "--overlap", str(overlap),
+                      "--precision", precision, "--output", out_csv, "--device", str(dev)])
+            torch.cuda.synchronize()
+            pick_s[precision] = time.perf_counter() - t0
+            launches_of[precision] = launches = read_counts()
+            handle.remove()
+            want = dict.fromkeys(launches, 0)
+            want.update(trigger_extract=1, lstm_multi=4 * forwards[0])
+            if precision == "bfloat16":
+                want["lstm_multi_bf16"] = 4 * forwards[0]
+            if forwards[0] < 1 or launches != want:
+                fail(f"pick --precision {precision}: launches {launches}, want {want} ({forwards[0]} forwards)")
+            with open(out_csv, newline="") as f:
+                rows_of[precision] = list(csv.reader(f))
+            if rows_of[precision][0] != ["trace_id", "phase", "peak_time", "peak_value", "start_time",
+                                         "end_time"] or len(rows_of[precision]) < 2:
+                fail(f"pick --precision {precision}: {len(rows_of[precision]) - 1} rows under "
+                     f"{rows_of[precision][0]}")
+            print(f"pick --precision {precision}: {len(rows_of[precision]) - 1} picks from {len(files)} "
+                  f"files in {pick_s[precision]:.2f} s of host clock (weights, reading and picking), "
+                  f"{forwards[0]} forwards; launches {launches}")
+        if rows_of["float32"][1:] != ref_rows:
+            fail(f"pick: the float32 CSV's {len(rows_of['float32']) - 1} picks are not classify()'s "
+                 f"{len(ref_rows)} on the in-memory stream")
+
+        # ---- bf16 against float32 with the stretched heads: the strongest P
+        # pick of each station by the JAX package's rule; the curves' distance
+        # is printed (the stretch amplifies the bf16 rounding of the features)
+        picker16 = WaveformPicker(model, device=dev, precision="bfloat16")
+        curve_err = float(np.abs(picker16.annotate_array(data, **kw) - curves32).max())
+        strongest = {}
+        for precision, rows in rows_of.items():
+            for tid, phase, peak, val, *_ in rows[1:]:
+                cur = strongest.get((tid, precision))
+                if phase == "P" and (cur is None or float(val) > cur[1]):
+                    strongest[tid, precision] = (UTC(peak).timestamp, float(val))
+        ids = sorted({tid for tid, pr in strongest if pr == "float32"})
+        agree = [tid for tid in ids if (tid, "bfloat16") in strongest
+                 and abs(strongest[tid, "float32"][0] - strongest[tid, "bfloat16"][0]) < PICK_SAMPLES / SR
+                 and abs(strongest[tid, "float32"][1] - strongest[tid, "bfloat16"][1]) < PICK_VALUE]
+        if len(ids) < stations // 2 or agree != ids:
+            fail(f"pick: the strongest P pick agrees between the precisions at {len(agree)} of "
+                 f"{len(ids)} stations with a P pick (rule: < {PICK_SAMPLES} samples, < {PICK_VALUE})")
+        print(f"pick: the float32 CSV equals classify() on the in-memory stream ({len(ref_rows)} picks); "
+              f"bf16 curves of the seeded model within {seed_err:.3e} of float32 (tol {BF16_CURVE_TOL}); "
+              f"with the heads stretched (largest head weight {[round(g, 2) for g in gains]}) bf16 curves "
+              f"{curve_err:.3e} from float32 and the strongest P pick agrees by the JAX rule (< "
+              f"{PICK_SAMPLES} samples, < {PICK_VALUE}) at {len(agree)} of {len(ids)} stations")
+
+        # ---- classify_arrays by the host clock and under the profiler, both precisions
+        thresholds = dict(thr)
+        n_windows = stations * len(window_starts(n, model.in_samples, overlap))
+        timing = {}
+        for precision, pk in (("float32", picker), ("bfloat16", picker16)):
+            pk.classify_arrays(data, thresholds, **kw)
+            times = [classify_seconds(pk, data, thresholds, kw) for _ in range(5)]
+            med = float(np.median(times))
+            _, dev_ms, events = profiled(lambda: pk.classify_arrays(data, thresholds, **kw))
+            conv_ms = cudnn_ms(events)
+            k2_ms = sum(self_device_us(e) for e in events if "lstm_multi_kernel" in e.key) / 1e3
+            top = sorted(((self_device_us(e) / 1e3, e.count, e.key) for e in events
+                          if str(e.device_type).endswith("CUDA") and self_device_us(e) > 0), reverse=True)[:10]
+            timing[precision] = dict(windows_per_s=n_windows / med, wall_ms=med * 1e3, kernel_ms=dev_ms,
+                                     conv_ms=conv_ms, k2_ms=k2_ms,
+                                     top=[(key[:80], count, round(ms, 3)) for ms, count, key in top])
+            print(f"pick: classify_arrays {precision} on {card}: {n_windows} windows in {med * 1e3:.2f} ms "
+                  f"(median of 5, host clock) = {n_windows / med:.1f} windows/s; one call under "
+                  f"torch.profiler: summed kernel time {dev_ms:.2f} ms (cuDNN's convolutions and layout "
+                  f"transposes {conv_ms:.2f} ms, K2 {k2_ms:.3f} ms); its ten largest kernels (ms, launches): "
+                  + "; ".join(f"{key[:80]} {ms:.3f} x {count}" for ms, count, key in top))
+        return dict(launches=launches_of, files=len(files), file_mb=file_mb, read_ms=read_ms,
+                    picks={p_: len(r) - 1 for p_, r in rows_of.items()}, forwards=forwards[0],
+                    cli_s=pick_s, seeded_curve_err=seed_err, stretched_curve_err=curve_err,
+                    head_gains=gains, strongest_p_agree=len(agree), strongest_p_stations=len(ids),
+                    timing=timing)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_models is None:
+            os.environ.pop("VOLPICK_TPU_MODELS", None)
+        else:
+            os.environ["VOLPICK_TPU_MODELS"] = saved_models
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -1157,6 +1406,90 @@ def main() -> None:
               f"tanh takes two: {2 * att_ops['sfu'] / PEAK_SFU * 1e3:.4f} ms), no library call "
               "computes it")
 
+    # ---- 3, bf16: the bf16 entries of K2, K5 and K7 at the same shapes
+    # against their bf16 twins (one bf16 ulp), each timed by its profiler row
+    bf = torch.bfloat16
+
+    def rows_ms(fn, key, n=10):
+        """(summed ms of all kernels of a call, of the rows whose name holds `key`)"""
+        _, total, events = profiled(lambda: [fn() for _ in range(n)])
+        return total / n, sum(self_device_us(e) for e in events if key in e.key) / (1e3 * n)
+
+    lstm16 = {}
+    for c in (64, 16):
+        x16 = torch.as_tensor(rng.normal(size=(LSTM_B, c, LSTM_T)).astype(np.float32), device=dev).to(bf)
+        w16 = [torch.as_tensor(a.astype(np.float32), device=dev).to(bf) for a in (
+            rng.uniform(-0.25, 0.25, (LSTM_G, 4 * LSTM_H, c)),
+            rng.uniform(-0.25, 0.25, (LSTM_G, 4 * LSTM_H, LSTM_H)),
+            rng.normal(size=(LSTM_G, 4 * LSTM_H)) * 0.1)]
+        err16 = ulp_check(cuda_lstm.lstm_branches(x16, *w16, rev),
+                          cuda_lstm.lstm_branches_reference(x16, *w16, rev), f"lstm_branches bf16 C={c}")
+        xs16 = torch.stack([x16, x16.flip(-1)])
+        err16 = max(err16, ulp_check(cuda_lstm.lstm_multi(xs16, *w16),
+                                     cuda_lstm.lstm_multi_reference(xs16, *w16), f"lstm_multi bf16 C={c}"))
+        call16, rec16 = rows_ms(lambda: cuda_lstm.lstm_branches(x16, *w16, rev), "lstm_multi_kernel")
+        plain16 = cuda_ms(lambda: cuda_lstm.lstm_branches_reference(x16, *w16, rev), iters=5)
+        n_cell = LSTM_G * LSTM_B * LSTM_T * LSTM_H
+        # the projection is a bf16 product on the tensor cores, the recurrence float32
+        bnd16 = bound(nbytes(x16, *w16) + 2 * n_cell, flops=2 * n_cell * 4 * LSTM_H + 10 * n_cell,
+                      sfu=5 * n_cell, bf16_flops=2 * n_cell * 4 * c)
+        lib16 = torch.nn.LSTM(c, LSTM_H, bidirectional=True).to(dev).to(bf).eval()
+        seq16 = x16.permute(2, 0, 1).contiguous()
+        with torch.no_grad():
+            lib16_ms = profiled(lambda: [lib16(seq16) for _ in range(10)])[1] / 10
+        lstm16[c] = (call16, rec16, plain16, bnd16, lib16_ms, err16)
+        print(f"K2 bf16 lstm_branches B={LSTM_B} C={c} H={LSTM_H} T={LSTM_T}: within one bf16 ulp of "
+              f"its bf16 twin (largest |d| {err16:.3e}), lstm_multi too; time on {card}: whole call "
+              f"{call16:.4f} ms of summed kernel time under torch.profiler, the recurrence kernel "
+              f"alone {rec16:.4f} ms (float32: {lstm_ms[c][4]:.4f} / {lstm_ms[c][2]:.4f}); twin "
+              f"{plain16:.4f} ms; bound {bnd16[0]:.4f} ms ({bnd16[1]}); torch.nn.LSTM(bidirectional=True) "
+              f"in bf16 {lib16_ms:.4f} ms of summed kernel time")
+    lstm16_err = max(v[5] for v in lstm16.values())
+
+    xa16 = xa.to(bf)
+    wt16, wx16 = (torch.as_tensor((rng.normal(size=(ATT_C, ATT_U)) * 0.5 / ATT_C ** 0.5).astype(np.float32),
+                                  device=dev).to(bf) for _ in range(2))
+    bh16 = torch.as_tensor((rng.normal(size=ATT_U) * 0.05).astype(np.float32), device=dev).to(bf)
+    wa16 = wa.to(bf)
+    att16_err = ulp_check(cuda_addattn.addattn_x(xa16, wt16, bh16, wx16, wa16),
+                          cuda_addattn.addattn_x_reference(xa16, wt16, bh16, wx16, wa16), "addattn_x bf16")
+    xt16 = xa16.float().transpose(1, 2)
+    qa16 = (xt16 @ wt16.float() + bh16.float()).to(bf).contiguous()
+    ka16 = (xt16 @ wx16.float()).to(bf).contiguous()
+    att16_err = max(att16_err, ulp_check(cuda_addattn.addattn(xa16, qa16, ka16, wa16),
+                                         cuda_addattn.addattn_reference(xa16, qa16, ka16, wa16), "addattn bf16"))
+    _, att16_ms = rows_ms(lambda: cuda_addattn.addattn_x(xa16, wt16, bh16, wx16, wa16), "addattn_kernel")
+    _, att16_xqk_ms = rows_ms(lambda: cuda_addattn.addattn(xa16, qa16, ka16, wa16), "addattn_kernel")
+    att16_plain_ms = cuda_ms(lambda: cuda_addattn.addattn_x_reference(xa16, wt16, bh16, wx16, wa16))
+    att16_bound = bound(nbytes(xa16, wt16, bh16, wx16, wa16, xa16),
+                        flops=att_ops["flops"] + 4 * ATT_B * ATT_T * ATT_C * ATT_U, sfu=att_ops["sfu"])
+    print(f"K5 bf16 addattn_x x ({ATT_B}, {ATT_C}, {ATT_T}), U {ATT_U}: within one bf16 ulp of its bf16 "
+          f"twin, addattn too (largest |d| {att16_err:.3e}); time on {card}: kernel {att16_ms:.4f} ms, "
+          f"addattn {att16_xqk_ms:.4f} ms (their rows under torch.profiler; float32 "
+          f"{att['addattn_x'][0]:.4f} / {att['addattn'][0]:.4f}), twin {att16_plain_ms:.4f} ms, bound "
+          f"{att16_bound[0]:.4f} ms ({att16_bound[1]}), no library call computes it")
+
+    qkv16 = qkv.to(bf)
+    mha16_err = ulp_check(cuda_attn.mha_qkv(qkv16, mha_scale), cuda_attn.mha_qkv_reference(qkv16, mha_scale),
+                          "mha_qkv bf16")
+    q16, k16, v16 = q.to(bf), k.to(bf), v.to(bf)
+    mha16_err = max(mha16_err, ulp_check(cuda_attn.mha(q16, k16, v16, MHA_H),
+                                         cuda_attn.mha_reference(q16, k16, v16, MHA_H), "mha bf16"))
+    _, mha16_ms = rows_ms(lambda: cuda_attn.mha_qkv(qkv16, mha_scale), "mha_kernel")
+    _, mha16_hm_ms = rows_ms(lambda: cuda_attn.mha(q16, k16, v16, MHA_H), "mha_kernel")
+    _, mha32_row_ms = rows_ms(lambda: cuda_attn.mha_qkv(qkv, mha_scale), "mha_kernel")
+    mha16_plain_ms = cuda_ms(lambda: cuda_attn.mha_qkv_reference(qkv16, mha_scale), iters=20)
+    mha16_bound = bound(nbytes(qkv16) * 4 // 3, flops=(4 * MHA_D // MHA_H + 4) * n_score, sfu=n_score)
+    qv16, kv16, vv16 = (a.transpose(1, 2) for a in qkv16.unbind(2))
+    mha16_lib_ms = profiled(lambda: [F.scaled_dot_product_attention(qv16, kv16, vv16, scale=mha_scale)
+                                     for _ in range(10)])[1] / 10
+    print(f"K7 bf16 mha_qkv ({MHA_B}, {MHA_T}, 3, {MHA_H}, {MHA_D // MHA_H}) in place: within one bf16 ulp "
+          f"of its bf16 twin, mha too (largest |d| {mha16_err:.3e}); time on {card}: kernel "
+          f"{mha16_ms:.4f} ms, mha {mha16_hm_ms:.4f} ms (their rows under torch.profiler; float32 "
+          f"mha_qkv's row {mha32_row_ms:.4f}), twin {mha16_plain_ms:.4f} ms, bound {mha16_bound[0]:.4f} ms "
+          f"({mha16_bound[1]}); F.scaled_dot_product_attention in bf16 on views of the projection "
+          f"{mha16_lib_ms:.4f} ms of summed kernel time")
+
     # ---- 4-6. every picker at full width on the bench stream
     data = bench_stream_array(seed=0)
     t_start = UTC("2024-06-01T00:00:00")
@@ -1172,6 +1505,9 @@ def main() -> None:
         "trigger_scan": (cuda_trig, "scan_launches"), "conditioning": (cuda_cond, "launches"),
         "addattn": (cuda_addattn, "launches"), "rescnn": (cuda_rescnn, "launches"),
         "mha": (cuda_attn, "launches"),
+        # the launches of the bf16 instantiations, counted in the above too
+        "lstm_multi_bf16": (cuda_lstm, "bf16_launches"), "addattn_bf16": (cuda_addattn, "bf16_launches"),
+        "mha_bf16": (cuda_attn, "bf16_launches"),
     }
 
     def zero_counts():
@@ -1181,7 +1517,28 @@ def main() -> None:
     def read_counts():
         return {kn: getattr(mod, attr) for kn, (mod, attr) in counters.items()}
 
+    def want_launches(label, arch, margs, model, n_fwd, bf16):
+        """The launches of one classify (one classify_arrays) of a path with
+        n_fwd forwards: K1 once a call, on the opt-in route K3 instead; K2 4
+        times a forward on the EQT family; K7 n_layers times a forward under
+        "pallas"; on the opt-in route K5 twice and K4 once a forward; the bf16
+        instantiations where the forward runs in bf16 (K4 stays float32)."""
+        optin = label == OPTIN
+        want = {
+            "trigger_extract": 0 if optin else 1,
+            "trigger_scan": 1 if optin else 0,
+            "conditioning": n_fwd if optin else 0,
+            "addattn": 2 * n_fwd if optin else 0,
+            "lstm_multi": 4 * n_fwd if arch.endswith("eqtransformer") else 0,
+            "mha": model.n_layers * n_fwd if margs.get("attn") == "pallas" else 0,
+            "rescnn": 0,
+        }
+        for kn in ("lstm_multi", "addattn", "mha"):
+            want[f"{kn}_bf16"] = want[kn] if bf16 else 0
+        return want
+
     by_path, rates, thresholds_of, device_of, curves_of, optin_kernel_ms = {}, {}, {}, {}, {}, {}
+    bf16_of = {}  # label -> the bf16 run of phase 5
     optin_launches = {}  # attention route -> (aten:: calls, kernel launches) of one classify_arrays
     ops_of = {}
     for label, arch, margs, pkw, env, overlap, blinding, batch in PATHS:
@@ -1214,15 +1571,7 @@ def main() -> None:
         # one classify_arrays a classify (the stations have one length); one
         # conditioning launch a forward (a step, or the flush window)
         optin = label == OPTIN
-        want = {
-            "trigger_extract": 0 if optin else 1,
-            "trigger_scan": 1 if optin else 0,
-            "conditioning": n_fwd if optin else 0,
-            "addattn": 2 * n_fwd if optin else 0,
-            "lstm_multi": 4 * n_fwd if arch.endswith("eqtransformer") else 0,
-            "mha": model.n_layers * n_fwd if margs.get("attn") == "pallas" else 0,
-            "rescnn": 0,
-        }
+        want = want_launches(label, arch, margs, model, n_fwd, bf16=False)
         if n_fwd < 1 or launches != want:
             fail(f"{label}: launches {launches}, want {want}")
         if len(out.picks) == 0:
@@ -1300,6 +1649,37 @@ def main() -> None:
                     fail(f'{label}: method="pallas" picks differ from "pallas_full" on its curves')
             print(f'{label}: method="pallas" equals "pallas_full" on its own curves '
                   f"({int(a_full[2].sum())} picks in {rows.shape[0]} rows)")
+
+        if label in BF16_PATHS:
+            # phase 5 in bf16: the same model through a bf16 picker
+            bf_picker = WaveformPicker(model, device=dev, precision="bfloat16", **pkw)
+            bf_err = float(np.abs(bf_picker.annotate_array(data, **kw) - curves).max())
+            fwd16 = [0]
+            hook16 = bf_picker._net.register_forward_hook(lambda *_: fwd16.__setitem__(0, fwd16[0] + 1))
+            zero_counts()
+            bf_picker.classify_arrays(data, thresholds, **kw)
+            torch.cuda.synchronize()
+            by_path[f"{label} bfloat16"] = bl = read_counts()
+            hook16.remove()
+            want16 = want_launches(label, arch, margs, model, fwd16[0], bf16=True)
+            if fwd16[0] < 1 or bl != want16:
+                fail(f"{label} bf16: launches {bl}, want {want16}")
+            if not bf_err <= BF16_CURVE_TOL:
+                fail(f"{label} bf16: curves {bf_err} from the float32 curves (tol {BF16_CURVE_TOL})")
+            _, dev16_ms, ev16 = profiled(lambda: bf_picker.classify_arrays(data, thresholds, **kw))
+            own16 = {kn: sum(self_device_us(e) for e in ev16 if kn in e.key) / 1e3
+                     for kn in ("mha_kernel", "addattn_kernel", "condition_kernel", "trigger_scan_kernel",
+                                "trigger_extract_kernel", "lstm_multi_kernel")}
+            conv16, conv32 = cudnn_ms(ev16), cudnn_ms(events)
+            bf16_of[label] = dict(curve_err=bf_err, kernel_ms=dev16_ms, kernel_ms_f32=dev_ms,
+                                  conv_ms=conv16, conv_ms_f32=conv32, forwards=fwd16[0],
+                                  kernels={kn: ms for kn, ms in own16.items() if ms > 0})
+            print(f"{label} bf16: curves within {bf_err:.3e} of the float32 curves (tol {BF16_CURVE_TOL}); "
+                  f"launches {bl}; one classify_arrays under torch.profiler on {card}: summed kernel "
+                  f"time {dev16_ms:.2f} ms against float32 {dev_ms:.2f} ms (cuDNN's convolutions and "
+                  f"layout transposes {conv16:.2f} / {conv32:.2f} ms; of it "
+                  + ", ".join(f"{kn} {ms:.3f} ms" for kn, ms in own16.items() if ms > 0) + ")")
+            del bf_picker
 
         # CPU cross-check on 1 station x 5 min, same weights
         cpu_model = load_model(arch, device="cpu", **margs)
@@ -1600,6 +1980,11 @@ def main() -> None:
     by_path["eqtransformer/evaluate"] = evaluation["launches"]
     del waves, meta
 
+    # ---- 9. the file-to-picks path at full width, both precisions
+    picking = pick_phase(dev, card, zero_counts, read_counts, data, t_start)
+    by_path["eqtransformer/pick float32"] = picking["launches"]["float32"]
+    by_path["eqtransformer/pick bfloat16"] = picking["launches"]["bfloat16"]
+
     def entry(name, source, replaces, path, err, ms, plain_ms, bnd, library_ms=None, **extra):
         return dict({"name": name, "route": "cuda", "source": f"volpick_tpu_torch/csrc/{source}",
                      "replaces": f"volpick_tpu/ops/pallas/{replaces}",
@@ -1670,12 +2055,28 @@ def main() -> None:
         entry("mha", "mha.cu", "attention.py:55", "tpupicknet/pallas", mha_err, mha_ms,
               mha_plain_ms, mha_bound, mha_lib_ms, ms_head_major=mha_hm_ms,
               plain_ms_head_major=mha_hm_plain_ms, library_ms_contiguous=mha_lib_packed_ms),
+        # the bf16 instantiations at phase 3's shapes against their bf16 twins
+        # (max_abs_err: the largest |d|, each within one bf16 ulp), launches
+        # those of the bf16 runs of phases 9 and 5. K2: ms the whole call's
+        # summed kernel time (bf16 projection included), kernel_only_ms the
+        # recurrence; K5, K7: ms the kernel's profiler row (addattn_x,
+        # mha_qkv), *_xqk / *_head_major the other entry, ms_f32_row K7's
+        # float32 row in the same process
+        entry("lstm_multi_bf16", "lstm_multi.cu", "lstm.py:76", "eqtransformer/pick bfloat16", lstm16_err,
+              lstm16[64][0], lstm16[64][2], lstm16[64][3], lstm16[64][4], kernel_only_ms=lstm16[64][1],
+              ms_c16=lstm16[16][0], kernel_only_ms_c16=lstm16[16][1], plain_ms_c16=lstm16[16][2],
+              bound_ms_c16=lstm16[16][3][0], bound_by_c16=lstm16[16][3][1], library_ms_c16=lstm16[16][4]),
+        entry("addattn_bf16", "addattn.cu", "addattn.py:52", f"{OPTIN} bfloat16", att16_err, att16_ms,
+              att16_plain_ms, att16_bound, ms_xqk=att16_xqk_ms),
+        entry("mha_bf16", "mha.cu", "attention.py:55", "tpupicknet/pallas bfloat16", mha16_err, mha16_ms,
+              mha16_plain_ms, mha16_bound, mha16_lib_ms, ms_head_major=mha16_hm_ms, ms_f32_row=mha32_row_ms),
     ], "launches_by_path": by_path, "optin_classify_launches": optin_launches,
         "streaming": {"packets": n_packets, "passes": n_pass, "forwards": n_fwd, "picks": len(got_picks),
                       "packets_per_s": stream_rate, "pass_ms_median": stream_pass_ms},
         "route_max_abs_curve_diff": route_errs,
         "training": {k: v for k, v in training.items() if k != "launches"},
-        "evaluation": {k: v for k, v in evaluation.items() if k not in ("launches", "k1_bound")}}))
+        "evaluation": {k: v for k, v in evaluation.items() if k not in ("launches", "k1_bound")},
+        "bf16_paths": bf16_of, "pick": {k: v for k, v in picking.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -8,10 +8,16 @@ entries) and additive attention (both entries) 1e-5 (the tests/test_pallas.py pi
 3e-4; picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another
 order on the card); a train step on the card against the CPU port in
 float64: loss 1e-10 relative, gradients 1e-6 of each tensor's largest
-entry, parameters and EMA after the step 1e-9.
+entry, parameters and EMA after the step 1e-9. The bfloat16 entries of the
+LSTM, additive attention and MHA kernels against their bf16 twins: one bf16
+ulp, |Δ| <= 2^-7 |twin| + 1e-6 (the twins do the kernels' float32
+arithmetic in another order; a sum that lands near a rounding boundary may
+round to the neighbouring bf16 value).
 """
 
 import ctypes
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -836,8 +842,13 @@ def test_eval_sweep_on_the_card_equals_the_per_threshold_path(dev, tmp_path):
     percentile at 0), so that the curves have isolated peaks."""
     from volpick_tpu_torch.data.synthetic import synthetic_arrays, synthetic_dataset
     from volpick_tpu_torch.eval import generate_task0
-    from tests.torch_eval_common import stretch_eqt_heads
     from volpick_tpu_torch.eval import task0 as et0
+
+    # by its path: where a package named `tests` is installed, it shadows this directory
+    spec = importlib.util.spec_from_file_location("torch_heads", Path(__file__).with_name("torch_heads.py"))
+    heads = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(heads)
+    stretch_eqt_heads = heads.stretch_eqt_heads
 
     ds = synthetic_dataset(*synthetic_arrays(n_events=240, n_noise=40, n_samples=9000, seed=3))
     targets = generate_task0(ds, tmp_path, noise_before_events=True).reset_index(drop=True)
@@ -867,3 +878,112 @@ def test_eval_sweep_on_the_card_equals_the_per_threshold_path(dev, tmp_path):
     t1 = torch.as_tensor(np.asarray(thresholds, np.float32), device=dev).repeat_interleave(256)
     assert rows.shape == (2304, flat.shape[-1])
     _assert_extract_equals_twin(rows, t1, t1 / 2.0, 64)
+
+
+BF16 = torch.bfloat16
+
+
+def _one_ulp(got: torch.Tensor, want: torch.Tensor) -> None:
+    """bf16 outputs within one bf16 ulp of the twin's."""
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape
+    d = (got.float() - want.float()).abs()
+    tol = 2.0 ** -7 * want.float().abs() + 1e-6
+    assert bool((d <= tol).all()), float((d - tol).max())
+
+
+@pytest.mark.parametrize("b,c,h,t", [(232, 64, 16, 47), (232, 16, 16, 47), (7, 16, 8, 5), (33, 12, 32, 60)])
+def test_lstm_bf16_entries_match_twins(dev, b, c, h, t):
+    rng = np.random.default_rng(b + c)
+    x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev).to(BF16)
+    w = [a.to(BF16) for a in _lstm_args(dev, rng, 2, c, h)]
+    before = cuda_lstm.launches
+    got = cuda_lstm.lstm_branches(x, *w, reverse=(False, True))
+    assert cuda_lstm.launches == before + 1
+    _one_ulp(got, cuda_lstm.lstm_branches_reference(x, *w, reverse=(False, True)))
+    xs = torch.stack([x, x.flip(-1)])
+    _one_ulp(cuda_lstm.lstm_multi(xs, *w), cuda_lstm.lstm_multi_reference(xs, *w))
+
+
+@pytest.mark.parametrize("b,t", [(232, 47), (1, 47), (3, 5), (256, 47)])
+def test_addattn_bf16_entries_match_twins(dev, b, t):
+    rng = np.random.default_rng(b * t)
+    x = torch.as_tensor(rng.normal(size=(b, 16, t)).astype(np.float32), device=dev).to(BF16)
+    wt, wx = (torch.as_tensor(rng.normal(size=(16, 32)).astype(np.float32) * 0.3, device=dev).to(BF16)
+              for _ in range(2))
+    bh, wa = (torch.as_tensor(rng.normal(size=32).astype(np.float32) * 0.3, device=dev).to(BF16)
+              for _ in range(2))
+    before = cuda_addattn.launches
+    _one_ulp(cuda_addattn.addattn_x(x, wt, bh, wx, wa), cuda_addattn.addattn_x_reference(x, wt, bh, wx, wa))
+    xt = x.float().transpose(1, 2)
+    q = (xt @ wt.float() + bh.float()).to(BF16).contiguous()
+    k = (xt @ wx.float()).to(BF16).contiguous()
+    _one_ulp(cuda_addattn.addattn(x, q, k, wa), cuda_addattn.addattn_reference(x, q, k, wa))
+    assert cuda_addattn.launches == before + 2
+
+
+@pytest.mark.parametrize("b,t,dh", [(128, 94, 32), (3, 5, 8), (5, 127, 16), (2, 40, 6)])
+def test_mha_bf16_entries_match_twins(dev, b, t, dh):
+    rng = np.random.default_rng(b + t + dh)
+    qkv = torch.as_tensor(rng.normal(size=(b, t, 3, 4, dh)).astype(np.float32), device=dev).to(BF16)
+    before = cuda_attn.launches
+    _one_ulp(cuda_attn.mha_qkv(qkv, dh ** -0.5), cuda_attn.mha_qkv_reference(qkv, dh ** -0.5))
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, 4 * dh, t)).astype(np.float32), device=dev).to(BF16)
+               for _ in range(3))
+    _one_ulp(cuda_attn.mha(q, k, v, 4), cuda_attn.mha_reference(q, k, v, 4))
+    assert cuda_attn.launches == before + 2
+
+
+def test_bf16_wrappers_refuse_grad_and_float16(dev):
+    rng = np.random.default_rng(0)
+    x = torch.zeros(4, 16, 47, device=dev, dtype=BF16)
+    w = [a.to(BF16) for a in _lstm_args(dev, rng, 2, 16, 16)]
+    wt = torch.zeros(16, 32, device=dev, dtype=BF16)
+    bh = torch.zeros(32, device=dev, dtype=BF16)
+    qkv = torch.zeros(2, 10, 3, 2, 16, device=dev, dtype=BF16)
+    with pytest.raises(ValueError, match="grad"):
+        cuda_lstm.lstm_branches(x.clone().requires_grad_(), *w, reverse=(False, True))
+    with pytest.raises(ValueError, match="grad"):
+        cuda_addattn.addattn_x(x, wt.clone().requires_grad_(), bh, wt, bh)
+    with pytest.raises(ValueError, match="grad"):
+        cuda_attn.mha_qkv(qkv.clone().requires_grad_(), 0.25)
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_branches(x.half(), *(a.half() for a in w), reverse=(False, True))
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_branches(x, w[0].float(), *w[1:], reverse=(False, True))
+    with pytest.raises(TypeError):
+        cuda_addattn.addattn_x(x.half(), wt.half(), bh.half(), wt.half(), bh.half())
+    with pytest.raises(TypeError):
+        cuda_attn.mha_qkv(qkv.half(), 0.25)
+    with pytest.raises(TypeError):
+        q = torch.zeros(2, 32, 10, device=dev, dtype=torch.float16)
+        cuda_attn.mha(q, q, q, 2)
+
+
+def test_bf16_picker_launches_the_bf16_kernels(dev):
+    """A bf16 EQTransformer picker on the card goes through K2's bf16
+    instantiation, 4 launches a forward, and its curves stay within 0.1 of
+    the float32 picker's."""
+    model = load_model("eqtransformer", seed=0, in_samples=1504, lstm_blocks=1, device=dev)
+    data = np.random.default_rng(1).normal(size=(2, 3, 4000)).astype(np.float32)
+    want = WaveformPicker(model, device=dev).annotate_array(data, overlap=752, batch_size=8)
+    picker = WaveformPicker(model, device=dev, precision="bfloat16")
+    cuda_lstm.launches = cuda_lstm.bf16_launches = 0
+    got = picker.annotate_array(data, overlap=752, batch_size=8)
+    assert cuda_lstm.bf16_launches == cuda_lstm.launches > 0 and cuda_lstm.launches % 4 == 0
+    assert got.dtype == np.float32 and np.abs(got - want).max() <= 0.1
+
+
+def test_native_readers_build_under_the_ports_build_directory(dev, tmp_path):
+    """On the card machine too, g++ builds the miniSEED decoder from
+    ``native/miniseed.cpp`` into ``build/volpick_tpu_torch/``."""
+    from volpick_tpu_torch.core.stream import Stream, Trace, UTC
+    from volpick_tpu_torch.io import _native, read_mseed, write_mseed
+
+    tr = Trace(np.arange(5000, dtype=np.float32), dict(network="XX", station="A", channel="HHZ",
+                                                        sampling_rate=100.0, starttime=UTC(0)))
+    write_mseed(Stream([tr]), tmp_path / "a.mseed")
+    np.testing.assert_array_equal(read_mseed(tmp_path / "a.mseed")[0].data, tr.data)
+    path = _native.library_path("miniseed")
+    assert path.exists() and path.parent == _build.BUILD_DIR
+    assert path.parent.name == "volpick_tpu_torch" and path.parent.parent.name == "build"
+    assert not any(p.name == "volpick_tpu" for p in path.parents)

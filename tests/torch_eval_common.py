@@ -6,6 +6,7 @@ as a JAX tree."""
 import numpy as np
 import torch
 
+from tests.torch_heads import _stats, stretch_eqt_heads
 from tests.torch_train_common import perturbed_params, state_dict_from_jax
 from volpick_tpu_torch.models import EQTransformer, PhaseNet
 from volpick_tpu_torch.models.convert import jax_tree_from_model
@@ -13,11 +14,6 @@ from volpick_tpu_torch.models.convert import jax_tree_from_model
 DS = dict(n_events=30, n_noise=10, n_samples=6000, seed=11)  # tests/test_eval.py's dataset
 SMALL_EQT = dict(in_samples=1504, lstm_blocks=1)
 FORWARD_TOL = {"phasenet": 2e-5, "eqtransformer": 2e-4}  # the README's forward pins
-
-
-def _stats(logit: np.ndarray):
-    mid, top = np.percentile(logit.astype(np.float64), [50, 99.9])
-    return 5.0 / float(top - mid), float(mid)
 
 
 def stretch_heads(model, frames: torch.Tensor) -> None:
@@ -36,16 +32,6 @@ def stretch_heads(model, frames: torch.Tensor) -> None:
                 b[k] = a * (b[k] - b[ni] - m) + b[ni] - 5.0
             return
     stretch_eqt_heads(model, [torch.log(p / (1 - p)).numpy() for p in out])
-
-
-def stretch_eqt_heads(model, logits) -> None:
-    """``stretch_heads``' rule for the EQTransformer family, given one array
-    of logit samples a head, detection first."""
-    with torch.no_grad():
-        for head, logit in zip([model.conv_d] + list(model.pick_convs), logits):
-            a, m = _stats(np.asarray(logit))
-            head.bias.copy_((head.bias - m) * a - 5.0)
-            head.weight.mul_(a)
 
 
 def model_pair(arch: str, frames_of):

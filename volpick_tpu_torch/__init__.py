@@ -5,7 +5,9 @@ the reference the port is tested against. The port imports neither JAX nor
 anything of ``volpick_tpu``; what it needs of that package it keeps as its
 own copy.
 
-- ``volpick_tpu_torch.core``   : Stream / Trace / UTC and the pick result types (numpy)
+- ``volpick_tpu_torch.core``   : Stream / Trace / UTC, the pick result types (numpy), SAC,
+                                  rotation to ZNE, geodesics, obspy converters
+- ``volpick_tpu_torch.io``     : miniSEED and WIN32 (native decoders), StationXML
 - ``volpick_tpu_torch.ops``    : framing, stacking, conditioning, trigger extraction
 - ``volpick_tpu_torch.ops.cuda``: hand-written Hopper (sm_90a) CUDA kernels, each
                                   with a plain PyTorch twin used on the CPU
@@ -17,6 +19,9 @@ own copy.
 - ``volpick_tpu_torch.pipeline``: the training augmentations and the batch generator
 - ``volpick_tpu_torch.train``  : losses, schedules, EMA, checkpoints, Trainer / train(config),
                                   the native .npz.v1 export
+- ``volpick_tpu_torch.eval``   : evaluation targets, the task-0 sweep, tasks 1/2/3
+- ``volpick_tpu_torch.classical``: the Baer-Kradolfer and AR-AIC baseline pickers
+- ``python -m volpick_tpu_torch pick|train|targets|evaluate``: the command line
 """
 
 __version__ = "0.1.0"

@@ -2,12 +2,13 @@
 
 Commands
 --------
+pick      pick P/S phases on miniSEED/SAC files with a pretrained model
 train     train from a JSON config (same as python -m volpick_tpu_torch.train.trainer)
 targets   generate task0/task1/task23 evaluation target CSVs for a dataset
 evaluate  run the task0 threshold sweep + task1/2/3 scoring
 
-`train` and `evaluate` run on the card unless given `--device cpu`. Reading a
-dataset directory needs h5py and pandas.
+`pick`, `train` and `evaluate` run on the card unless given `--device cpu`.
+Reading a dataset directory needs h5py and pandas.
 """
 
 from __future__ import annotations
@@ -15,6 +16,45 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _cmd_pick(args):
+    from volpick_tpu_torch.core.stream import Stream
+    from volpick_tpu_torch.models import from_pretrained
+    from volpick_tpu_torch.picker import WaveformPicker
+
+    stream = Stream()
+    for path in args.files:
+        if path.lower().endswith((".sac",)):
+            from volpick_tpu_torch.core.sacio import read_sac
+
+            stream.append(read_sac(path))
+        else:
+            from volpick_tpu_torch.io import read_mseed
+
+            stream += read_mseed(path)
+    model = from_pretrained(args.model, args.weights, device=args.device)
+    picker = WaveformPicker(model, device=args.device, precision=args.precision)
+    kwargs = {}
+    if args.overlap is not None:
+        kwargs["overlap"] = args.overlap
+    out = picker.classify(stream, blinding=tuple(args.blinding), batch_size=args.batch_size, **kwargs)
+    if args.output:
+        import csv
+
+        with open(args.output, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["trace_id", "phase", "peak_time", "peak_value", "start_time", "end_time"])
+            for p in out.picks:
+                w.writerow([p.trace_id, p.phase, p.peak_time.isoformat(),
+                            f"{p.peak_value:.4f}", p.start_time.isoformat(), p.end_time.isoformat()])
+        print(f"{len(out.picks)} picks -> {args.output}")
+    else:
+        print(out)
+        for p in out.picks:
+            print(" ", p)
+        for d in out.detections:
+            print("  DET", d)
 
 
 def _cmd_train(args):
@@ -61,6 +101,18 @@ def main(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="command", required=True)
     device_help = '"cuda" (the default: the card) or "cpu"'
+
+    p = sub.add_parser("pick", help="pick phases on waveform files")
+    p.add_argument("files", nargs="+", help="miniSEED or SAC files")
+    p.add_argument("--model", default="eqtransformer", choices=["phasenet", "eqtransformer", "voleqtransformer", "tpupicknet"])
+    p.add_argument("--weights", default="volpick", help="pretrained weight name")
+    p.add_argument("--overlap", type=int, default=None)
+    p.add_argument("--blinding", type=int, nargs=2, default=(500, 500))
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--output", "-o", help="write picks to CSV")
+    p.add_argument("--device", default=None, help=device_help)
+    p.set_defaults(fn=_cmd_pick)
 
     p = sub.add_parser("train", help="train from a JSON config")
     p.add_argument("--config", required=True)

@@ -46,10 +46,21 @@
 //   4 channels of its row, x[c, s] is a broadcast, and the division by
 //   (sum + eps) comes once an output instead of once a weight. The energies'
 //   row stride T | 1 is odd, so lanes along rows never conflict.
+//
+// Two element types, one body (template parameter T): float, and bf16 for
+// the picker's bfloat16 mode, with the same launch plan and shared layout.
+// The bf16 instantiation stages x (and q, k or the weights) with plain loads
+// (8 bytes where aligned) widened to float32 on their way into the same float
+// arrays (cp.async cannot convert), computes everything in float32 as the
+// float one does, and rounds each output to bf16. The float instantiation's
+// code is the one it was.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -94,6 +105,23 @@ __device__ __forceinline__ float tanh_of(float a) {
 
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 
+template <typename T>
+constexpr bool kIsBf16 = std::is_same_v<T, __nv_bfloat16>;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float from_float(float v, float*) { return v; }
+__device__ __forceinline__ __nv_bfloat16 from_float(float v, __nv_bfloat16*) {
+  return __float2bfloat16(v);
+}
+
+// Four consecutive bf16 (8 bytes) widened to float4.
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* src) {
+  const uint2 v = *reinterpret_cast<const uint2*>(src);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
 // How many stretches the s axis of a 32-row group is cut into, one warp
 // each: a power of two, at most T, as many as keep the CTA within kMaxWarps.
 __host__ __device__ inline int stretches(int t, int g) {
@@ -133,37 +161,57 @@ __host__ __device__ inline Layout layout(int c, int t, int u, int g, int ku, boo
 }
 
 // Copies n contiguous floats with cp.async, 16 bytes a piece where `vec`
-// (n % 4 == 0, both sides 16-byte aligned).
-__device__ __forceinline__ void stage_flat(float* dst, const float* src, int n, bool vec) {
-  if (vec) {
+// (n % 4 == 0, both sides 16-byte aligned); bf16 by plain loads widened to
+// float, 8 bytes a piece where `vec` (n % 4 == 0, 8-byte aligned).
+template <typename T>
+__device__ __forceinline__ void stage_flat(float* dst, const T* src, int n, bool vec) {
+  if constexpr (kIsBf16<T>) {
+    if (vec) {
+      for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
+        *reinterpret_cast<float4*>(dst + i) = widen4(src + i);
+    } else {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = to_float(src[i]);
+    }
+  } else if (vec) {
     for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4) cp_async16(dst + i, src + i);
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
   }
 }
 
-// Copies `rows` rows of u floats to rows of stride us.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows, int u, int us,
+// Copies `rows` rows of u elements to float rows of stride us (bf16 widened
+// as in stage_flat).
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int rows, int u, int us,
                                            bool vec) {
   if (vec) {
     const int n4 = u / 4;
     for (int i = threadIdx.x; i < rows * n4; i += blockDim.x) {
       const int r = i / n4, col = (i - r * n4) * 4;
-      cp_async16(dst + r * us + col, src + r * u + col);
+      if constexpr (kIsBf16<T>) {
+        *reinterpret_cast<float4*>(dst + r * us + col) = widen4(src + r * u + col);
+      } else {
+        cp_async16(dst + r * us + col, src + r * u + col);
+      }
     }
   } else {
     for (int i = threadIdx.x; i < rows * u; i += blockDim.x) {
       const int r = i / u, col = i - r * u;
-      cp_async4(dst + r * us + col, src + r * u + col);
+      if constexpr (kIsBf16<T>) {
+        dst[r * us + col] = to_float(src[r * u + col]);
+      } else {
+        cp_async4(dst + r * us + col, src + r * u + col);
+      }
     }
   }
 }
 
 // Copies a (rows, u) weight to rows of `up` floats, zeros past u.
-__device__ __forceinline__ void load_padded(float* dst, const float* src, int rows, int u, int up) {
+template <typename T>
+__device__ __forceinline__ void load_padded(float* dst, const T* src, int rows, int u, int up) {
   for (int i = threadIdx.x; i < rows * up; i += blockDim.x) {
     const int r = i / up, col = i - r * up;
-    dst[i] = col < u ? src[r * u + col] : 0.0f;
+    dst[i] = col < u ? to_float(src[r * u + col]) : 0.0f;
   }
 }
 
@@ -171,11 +219,11 @@ __device__ __forceinline__ void load_padded(float* dst, const float* src, int ro
 // dynamic shared memory layout(c, t, u, g, kU, kProject).total floats.
 // kProject: `qw` is Wt (C, U), `kw` is Wx (C, U), `bh` (U,); else `qw` is
 // q (B, T, U), `kw` is k (B, T, U) and `bh` is not read.
-template <int kU, bool kProject>
+template <typename T, int kU, bool kProject>
 __global__ void __launch_bounds__(kMaxWarps * kLanes, 1)
-addattn_kernel(const float* __restrict__ x, const float* __restrict__ qw,
-               const float* __restrict__ kw, const float* __restrict__ bh,
-               const float* __restrict__ wa, float* __restrict__ out, int b, int c, int t,
+addattn_kernel(const T* __restrict__ x, const T* __restrict__ qw,
+               const T* __restrict__ kw, const T* __restrict__ bh,
+               const T* __restrict__ wa, T* __restrict__ out, int b, int c, int t,
                int u, int g, int ss, int vec_rows, int vec_x, float eps) {
   extern __shared__ float4 smem4[];
   float* sh = reinterpret_cast<float*>(smem4);
@@ -191,7 +239,7 @@ addattn_kernel(const float* __restrict__ x, const float* __restrict__ qw,
   const int w0 = blockIdx.x * g;        // first window of this CTA
   const int gw = min(g, b - w0);        // its windows
   const int rows = gw * t;              // its query rows, window after window
-  const float* xb = x + static_cast<size_t>(w0) * c * t;
+  const T* xb = x + static_cast<size_t>(w0) * c * t;
 
   // ---- staging
   if (kProject) {
@@ -325,7 +373,7 @@ addattn_kernel(const float* __restrict__ x, const float* __restrict__ qw,
   // is one address for all lanes of a window; the division by the denominator
   // comes last, once an output. Written coalesced along t.
   const int ch_groups = (c + 3) / 4;
-  float* ob = out + static_cast<size_t>(w0) * c * t;
+  T* ob = out + static_cast<size_t>(w0) * c * t;
   for (int task = warp; task < row_groups * ch_groups && !(kSkip & 4); task += n_warps) {
     const int rg = task % row_groups, c0 = (task / row_groups) * 4;
     const int r = rg * kLanes + lane;
@@ -349,21 +397,21 @@ addattn_kernel(const float* __restrict__ x, const float* __restrict__ qw,
     if (r < rows) {
       float denom = eps;
       for (int jj = 0; jj < ss; ++jj) denom += pd[jj * l.ps + r];
-      float* o = ob + gi * c * t + c0 * t + (r - gi * t);
-      o[0] = a0 / denom;
-      if (c0 + 1 < c) o[t] = a1 / denom;
-      if (c0 + 2 < c) o[2 * t] = a2 / denom;
-      if (c0 + 3 < c) o[3 * t] = a3 / denom;
+      T* o = ob + gi * c * t + c0 * t + (r - gi * t);
+      o[0] = from_float(a0 / denom, o);
+      if (c0 + 1 < c) o[t] = from_float(a1 / denom, o);
+      if (c0 + 2 < c) o[2 * t] = from_float(a2 / denom, o);
+      if (c0 + 3 < c) o[3 * t] = from_float(a3 / denom, o);
     }
   }
 }
 
-template <int kU, bool kProject>
-int launch_instance(const float* x, const float* qw, const float* kw, const float* bh,
-                    const float* wa, float* out, int b, int c, int t, int u, int g, int ss,
+template <typename T, int kU, bool kProject>
+int launch_instance(const T* x, const T* qw, const T* kw, const T* bh,
+                    const T* wa, T* out, int b, int c, int t, int u, int g, int ss,
                     int threads, int vec_rows, int vec_x, float eps, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(layout(c, t, u, g, kU, kProject).total) * sizeof(float);
-  auto kernel = addattn_kernel<kU, kProject>;
+  auto kernel = addattn_kernel<T, kU, kProject>;
   if (smem > 48 * 1024) {
     // above 48 KB a launch has to opt in; the attribute is per function and device
     const cudaError_t err = cudaFuncSetAttribute(
@@ -375,28 +423,30 @@ int launch_instance(const float* x, const float* qw, const float* kw, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+// 16 bytes for cp.async of floats, 8 for four bf16
+template <typename T>
+bool aligned4(const T* p) { return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0; }
 
-template <bool kProject>
-int launch(const float* x, const float* qw, const float* kw, const float* bh, const float* wa,
-           float* out, int b, int c, int t, int u, int g, float eps, void* stream) {
+template <bool kProject, typename T>
+int launch(const T* x, const T* qw, const T* kw, const T* bh, const T* wa,
+           T* out, int b, int c, int t, int u, int g, float eps, void* stream) {
   if (b < 1 || c < 1 || t < 1 || u < 1 || g < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int row_groups = (g * t + kLanes - 1) / kLanes;
   const int ss = stretches(t, g);
   const int warps = row_groups * ss < kMaxWarps ? row_groups * ss : kMaxWarps;
-  const int vec_rows = !kProject && u % 4 == 0 && aligned16(qw) && aligned16(kw);
-  const int vec_x = (c * t) % 4 == 0 && aligned16(x);
+  const int vec_rows = !kProject && u % 4 == 0 && aligned4(qw) && aligned4(kw);
+  const int vec_x = (c * t) % 4 == 0 && aligned4(x);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = warps * kLanes;
   if (u <= 8) {
-    return launch_instance<8, kProject>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss, threads,
+    return launch_instance<T, 8, kProject>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss, threads,
                                         vec_rows, vec_x, eps, s);
   }
   if (u <= 16) {
-    return launch_instance<16, kProject>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss, threads,
+    return launch_instance<T, 16, kProject>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss, threads,
                                          vec_rows, vec_x, eps, s);
   }
-  return launch_instance<32, kProject>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss, threads,
+  return launch_instance<T, 32, kProject>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss, threads,
                                        vec_rows, vec_x, eps, s);
 }
 
@@ -415,7 +465,8 @@ extern "C" int addattn_smem_bytes(int c, int t, int u, int g, int project) {
 extern "C" int addattn_f32(const float* x, const float* q, const float* k, const float* wa,
                            float* out, int b, int c, int t, int u, int g, float eps,
                            void* stream) {
-  return launch<false>(x, q, k, nullptr, wa, out, b, c, t, u, g, eps, stream);
+  return launch<false>(x, q, k, static_cast<const float*>(nullptr), wa, out, b, c, t, u, g, eps,
+                       stream);
 }
 
 // As addattn_f32 with q = x^T Wt + bh and k = x^T Wx computed in shared
@@ -423,5 +474,22 @@ extern "C" int addattn_f32(const float* x, const float* q, const float* k, const
 extern "C" int addattn_x_f32(const float* x, const float* wt, const float* bh, const float* wx,
                              const float* wa, float* out, int b, int c, int t, int u, int g,
                              float eps, void* stream) {
+  return launch<true>(x, wt, wx, bh, wa, out, b, c, t, u, g, eps, stream);
+}
+
+// addattn_f32 on bf16 operands and output; float32 inside.
+extern "C" int addattn_bf16(const __nv_bfloat16* x, const __nv_bfloat16* q,
+                            const __nv_bfloat16* k, const __nv_bfloat16* wa, __nv_bfloat16* out,
+                            int b, int c, int t, int u, int g, float eps, void* stream) {
+  return launch<false>(x, q, k, static_cast<const __nv_bfloat16*>(nullptr), wa, out, b, c, t, u,
+                       g, eps, stream);
+}
+
+// addattn_x_f32 on bf16 operands and output; the projections, like the rest,
+// in float32.
+extern "C" int addattn_x_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wt,
+                              const __nv_bfloat16* bh, const __nv_bfloat16* wx,
+                              const __nv_bfloat16* wa, __nv_bfloat16* out, int b, int c, int t,
+                              int u, int g, float eps, void* stream) {
   return launch<true>(x, wt, wx, bh, wa, out, b, c, t, u, g, eps, stream);
 }

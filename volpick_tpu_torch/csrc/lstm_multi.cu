@@ -37,7 +37,17 @@
 // (G, B, H, T) contract of lstm_multi and the (B, G*H, T) output of
 // lstm_branches, whose reversed branches read and write time T-1-t (no
 // flipped copies of x or h).
+//
+// Two element types, one body (template parameter T): float, and bf16 for
+// the picker's bfloat16 mode. The bf16 instantiation does what the Pallas
+// kernel does on bf16 operands: xp, W_hh and the bias come in as bf16 (xp
+// from a bf16 matrix product), are widened to float32 where they are read
+// (W_hh and the bias once, into registers; xp a step as an 8-byte cp.async
+// of the four gates), h and c are carried and the gates computed in float32,
+// and each h_t is rounded to bf16 on its store. The launch plan is the same
+// for both types, and the float instantiation's code is the one it was.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -55,19 +65,47 @@ __device__ __forceinline__ float tanh_fast(float x) {
   return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
 }
 
-// xp: float4 (i, f, g, o) at g*sxg + b*sxb + time*sxt + 4u; whh (G, 4H, H);
+// What the body needs of an element type: the vector of a unit's four gate
+// inputs (one cp.async), its widening to float4, and the widening and
+// narrowing of one element.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  using Gates = float4;
+  static __device__ __forceinline__ float4 gates(const float4& v) { return v; }
+  static __device__ __forceinline__ float load(float v) { return v; }
+  static __device__ __forceinline__ float store(float v) { return v; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using Gates = uint2;  // four bf16, gate i in the low half of .x
+  static __device__ __forceinline__ float4 gates(const uint2& v) {
+    return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ float load(__nv_bfloat16 v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ __nv_bfloat16 store(float v) { return __float2bfloat16(v); }
+};
+
+// xp: four T (i, f, g, o) at g*sxg + b*sxb + time*sxt + 4u; whh (G, 4H, H);
 // bias (G, 4H); out at g*sog + b*sob + u*T + time. grid (ceil(B / (32/HP)), G),
 // one warp a CTA. Bit g of reverse_mask makes branch g scan time backward.
-template <int HP>
+template <typename T, int HP>
 __global__ void __launch_bounds__(kLanes)
-lstm_multi_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
-                  const float* __restrict__ bias, float* __restrict__ out, int b_total,
+lstm_multi_kernel(const T* __restrict__ xp, const T* __restrict__ whh,
+                  const T* __restrict__ bias, T* __restrict__ out, int b_total,
                   int t_steps, int h, long long sxg, long long sxb, long long sxt, long long sog,
                   long long sob, unsigned reverse_mask) {
+  using E = Elem<T>;
+  using Gates = typename E::Gates;
+  constexpr int kGateBytes = sizeof(Gates);
   constexpr int kWin = kLanes / HP;  // windows a warp
   // slot s % (kDepth + 1) holds step s: the slot a copy lands in is never the
   // one the step being computed reads
-  __shared__ float4 ring[kDepth + 1][kLanes];
+  __shared__ Gates ring[kDepth + 1][kLanes];
 
   const int lane = threadIdx.x;
   const int u = lane % HP;
@@ -76,9 +114,9 @@ lstm_multi_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
   const bool live = b < b_total && u < h;
   const bool rev = g < 32 && ((reverse_mask >> g) & 1u);
 
-  const float* xrow = xp + g * sxg + (live ? b * sxb + 4 * u : 0);
-  float* orow = out + g * sog + (live ? b * sob + static_cast<long long>(u) * t_steps : 0);
-  // one 16-byte cp.async a thread a step and one commit group a step, also
+  const T* xrow = xp + g * sxg + (live ? b * sxb + 4 * u : 0);
+  T* orow = out + g * sog + (live ? b * sob + static_cast<long long>(u) * t_steps : 0);
+  // one cp.async (16 bytes, 8 for bf16) a thread a step and one commit group a step, also
   // where nothing is copied, so that "all but the newest kDepth - 1 groups
   // have landed" always means "step s has landed"
   auto prefetch = [&](int step) {
@@ -86,7 +124,8 @@ lstm_multi_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
       const int time = rev ? t_steps - 1 - step : step;
       const unsigned dst =
           static_cast<unsigned>(__cvta_generic_to_shared(&ring[step % (kDepth + 1)][lane]));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(xrow + time * sxt)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(xrow + time * sxt),
+                   "n"(kGateBytes)
                    : "memory");
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -100,14 +139,14 @@ lstm_multi_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
 #pragma unroll
   for (int gate = 0; gate < 4; ++gate) {
     const long long row = (static_cast<long long>(g) * 4 + gate) * h + u;
-    bs[gate] = live ? bias[row] : 0.0f;
+    bs[gate] = live ? E::load(bias[row]) : 0.0f;
 #pragma unroll
-    for (int v = 0; v < HP; ++v) w[gate][v] = (live && v < h) ? whh[row * h + v] : 0.0f;
+    for (int v = 0; v < HP; ++v) w[gate][v] = (live && v < h) ? E::load(whh[row * h + v]) : 0.0f;
   }
 
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kDepth - 1) : "memory");
-  float4 x = live ? ring[0][lane] : zero;  // a thread reads only what it copied itself
+  float4 x = live ? E::gates(ring[0][lane]) : zero;  // a thread reads only what it copied itself
   float c = 0.0f, hv = 0.0f;
   for (int s = 0; s < t_steps; ++s) {
     // W_hh . h_{t-1}: two partial sums a gate halve the dependent chain
@@ -128,11 +167,31 @@ lstm_multi_kernel(const float* __restrict__ xp, const float* __restrict__ whh,
     // the next step's inputs leave shared memory while the gates compute
     prefetch(s + kDepth);
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kDepth - 1) : "memory");
-    x = (live && s + 1 < t_steps) ? ring[(s + 1) % (kDepth + 1)][lane] : zero;
+    x = (live && s + 1 < t_steps) ? E::gates(ring[(s + 1) % (kDepth + 1)][lane]) : zero;
     c = sigmoid_fast(af) * c + sigmoid_fast(ai) * tanh_fast(ag);
     hv = live ? sigmoid_fast(ao) * tanh_fast(c) : 0.0f;
-    if (live) orow[rev ? t_steps - 1 - s : s] = hv;
+    if (live) orow[rev ? t_steps - 1 - s : s] = E::store(hv);
   }
+}
+
+template <typename T>
+int launch(const T* xp, const T* whh, const T* bias, T* out, int g, int b, int t, int h,
+           long long sxg, long long sxb, long long sxt, long long sog, long long sob,
+           unsigned reverse_mask, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hp = h <= 8 ? 8 : (h <= 16 ? 16 : 32);
+  const dim3 grid((b + kLanes / hp - 1) / (kLanes / hp), g);
+  if (hp == 8) {
+    lstm_multi_kernel<T, 8><<<grid, kLanes, 0, s>>>(xp, whh, bias, out, b, t, h, sxg, sxb, sxt,
+                                                    sog, sob, reverse_mask);
+  } else if (hp == 16) {
+    lstm_multi_kernel<T, 16><<<grid, kLanes, 0, s>>>(xp, whh, bias, out, b, t, h, sxg, sxb, sxt,
+                                                     sog, sob, reverse_mask);
+  } else {
+    lstm_multi_kernel<T, 32><<<grid, kLanes, 0, s>>>(xp, whh, bias, out, b, t, h, sxg, sxb, sxt,
+                                                     sog, sob, reverse_mask);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -144,18 +203,14 @@ extern "C" int lstm_multi_f32(const float* xp, const float* whh, const float* bi
                               int g, int b, int t, int h, long long sxg, long long sxb,
                               long long sxt, long long sog, long long sob, unsigned reverse_mask,
                               void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int hp = h <= 8 ? 8 : (h <= 16 ? 16 : 32);
-  const dim3 grid((b + kLanes / hp - 1) / (kLanes / hp), g);
-  if (hp == 8) {
-    lstm_multi_kernel<8><<<grid, kLanes, 0, s>>>(xp, whh, bias, out, b, t, h, sxg, sxb, sxt, sog,
-                                                 sob, reverse_mask);
-  } else if (hp == 16) {
-    lstm_multi_kernel<16><<<grid, kLanes, 0, s>>>(xp, whh, bias, out, b, t, h, sxg, sxb, sxt, sog,
-                                                  sob, reverse_mask);
-  } else {
-    lstm_multi_kernel<32><<<grid, kLanes, 0, s>>>(xp, whh, bias, out, b, t, h, sxg, sxb, sxt, sog,
-                                                  sob, reverse_mask);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(xp, whh, bias, out, g, b, t, h, sxg, sxb, sxt, sog, sob, reverse_mask, stream);
+}
+
+// As lstm_multi_f32 on bf16 operands and output (xp 8-byte aligned); h, c and
+// the gates in float32.
+extern "C" int lstm_multi_bf16(const __nv_bfloat16* xp, const __nv_bfloat16* whh,
+                               const __nv_bfloat16* bias, __nv_bfloat16* out, int g, int b, int t,
+                               int h, long long sxg, long long sxb, long long sxt, long long sog,
+                               long long sob, unsigned reverse_mask, void* stream) {
+  return launch(xp, whh, bias, out, g, b, t, h, sxg, sxb, sxt, sog, sob, reverse_mask, stream);
 }

@@ -37,10 +37,22 @@
 // and division, in the order of the plain twin. PV is a second
 // register-tiled product: a thread owns up to 4 rows x 4 channels and feeds
 // 64 FMAs from 8 float4 loads.
+//
+// Two element types, one body (template parameter T): float, and bf16 for
+// the picker's bfloat16 mode, with the same launch plan. The bf16
+// instantiation stages q, k and v with plain 8-byte (or 2-byte) loads that
+// are widened to float32 on their way into the same float tiles (cp.async
+// cannot convert), computes the logits, the softmax and both products in
+// float32 as the float one does, rounds the probabilities to bf16 before PV
+// (the Pallas kernel casts them to v's type) and rounds each output to bf16.
+// The float instantiation's code is the one it was.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -115,11 +127,49 @@ __device__ __forceinline__ void for_each_piece(int t, int dh, F f) {
   }
 }
 
-template <bool kVec>
-__device__ __forceinline__ void stage(float* dst, const float* src, int st, int sc, int t, int dh,
+// Four consecutive bf16 (8 bytes) widened to float4, and back.
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* src) {
+  const uint2 v = *reinterpret_cast<const uint2*>(src);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void narrow4(__nv_bfloat16* dst, const float4& v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A probability as the PV product reads it: as computed, or rounded to bf16.
+template <typename T>
+__device__ __forceinline__ float prob(float p) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return __bfloat162float(__float2bfloat16(p));
+  } else {
+    return p;
+  }
+}
+
+template <typename T, bool kVec>
+__device__ __forceinline__ void stage(float* dst, const T* src, int st, int sc, int t, int dh,
                                       int dp) {
   for_each_piece<kVec>(t, dh, [&](int tok, int d) {
-    if (kVec) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      // bf16: plain loads, widened into the float tile
+      if (kVec) {
+        *reinterpret_cast<float4*>(dst + tok * dp + d) =
+            widen4(src + static_cast<long long>(tok) * st + d);
+      } else {
+        dst[tok * dp + d] =
+            to_float(src[static_cast<long long>(tok) * st + static_cast<long long>(d) * sc]);
+      }
+    } else if (kVec) {
       cp_async16(dst + tok * dp + d, src + static_cast<long long>(tok) * st + d);
     } else {
       cp_async4(dst + tok * dp + d, src + static_cast<long long>(tok) * st + static_cast<long long>(d) * sc);
@@ -130,10 +180,10 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int st, int 
 // grid B*H; blockDim = ceil(T/8) * ceil(T/4) rounded up to whole warps;
 // dynamic shared memory (3 * TP * DP + TP * PP) floats with TP = 8 ceil(T/8),
 // DP = padded_dh(Dh), PP = 4 ceil(T/4) + 4. Dh <= 32, T <= 128.
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-mha_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           float* __restrict__ out, Strides in, Strides os, int n_heads, int dh, int t,
+mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           T* __restrict__ out, Strides in, Strides os, int n_heads, int dh, int t,
            float scale) {
   extern __shared__ float4 smem4[];
   const int n8 = (t + kRows - 1) / kRows, n4 = (t + kCols - 1) / kCols;
@@ -147,10 +197,10 @@ mha_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 
   const int wb = blockIdx.x / n_heads, wh = blockIdx.x % n_heads;
   const long long base = wb * in.b + static_cast<long long>(wh) * in.h;
-  stage<kVec>(qs, q + base, in.t, in.c, t, dh, dp);
-  stage<kVec>(ks, k + base, in.t, in.c, t, dh, dp);
+  stage<T, kVec>(qs, q + base, in.t, in.c, t, dh, dp);
+  stage<T, kVec>(ks, k + base, in.t, in.c, t, dh, dp);
   cp_async_commit();
-  stage<kVec>(vs, v + base, in.t, in.c, t, dh, dp);
+  stage<T, kVec>(vs, v + base, in.t, in.c, t, dh, dp);
   cp_async_commit();
 
   // zeros where the products read past T or Dh
@@ -257,7 +307,7 @@ mha_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
         for (int i = 0; i < kPerLane; ++i) {
           const int j = i * kLanes + lane;
           if (j < t) {
-            pr[j] = s[r][i] / sum[r];
+            pr[j] = prob<T>(s[r][i] / sum[r]);
           } else if (j < tp4) {
             pr[j] = 0.0f;
           }
@@ -273,7 +323,7 @@ mha_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   const int ndg = dh4 / 4;
   const int nrg = blockDim.x / ndg;
   const int dg = tid % ndg, rg = tid / ndg;
-  float* obase = out + wb * os.b + static_cast<long long>(wh) * os.h;
+  T* obase = out + wb * os.b + static_cast<long long>(wh) * os.h;
   for (int r0 = rg; r0 < t && rg < nrg && !(kSkip & 4); r0 += kPvRows * nrg) {
     float4 acc[kPvRows];
 #pragma unroll
@@ -303,28 +353,43 @@ mha_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     for (int a = 0; a < kPvRows; ++a) {
       const int i = r0 + a * nrg;
       if (i < t) {
-        // token-major output: 16 bytes a thread straight to device memory;
-        // otherwise through the q tile, which nothing reads any more
-        float* dst = kVec ? obase + static_cast<long long>(i) * os.t + dg * 4 : qs + i * dp + dg * 4;
-        *reinterpret_cast<float4*>(dst) = acc[a];
+        // token-major output: 16 bytes (8 in bf16) a thread straight to
+        // device memory; otherwise through the q tile, which nothing reads any more
+        if (kVec) {
+          T* dst = obase + static_cast<long long>(i) * os.t + dg * 4;
+          if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+            narrow4(dst, acc[a]);
+          } else {
+            *reinterpret_cast<float4*>(dst) = acc[a];
+          }
+        } else {
+          *reinterpret_cast<float4*>(qs + i * dp + dg * 4) = acc[a];
+        }
       }
     }
   }
   if (!kVec) {
     __syncthreads();
     for_each_piece<false>(t, dh, [&](int tok, int d) {
-      obase[static_cast<long long>(tok) * os.t + static_cast<long long>(d) * os.c] = qs[tok * dp + d];
+      const float o = qs[tok * dp + d];
+      T* dst = obase + static_cast<long long>(tok) * os.t + static_cast<long long>(d) * os.c;
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        *dst = __float2bfloat16(o);
+      } else {
+        *dst = o;
+      }
     });
   }
 }
 
-int launch(const float* q, const float* k, const float* v, float* out, Strides in, Strides os,
+template <typename T>
+int launch(const T* q, const T* k, const T* v, T* out, Strides in, Strides os,
            int b, int h, int dh, int t, float scale, bool vec, cudaStream_t stream) {
   const int n8 = (t + kRows - 1) / kRows, n4 = (t + kCols - 1) / kCols;
   const int threads = (n8 * n4 + kLanes - 1) / kLanes * kLanes;
   const int tp = n8 * kRows;
   const size_t smem = static_cast<size_t>(3 * tp * padded_dh(dh) + tp * (n4 * kCols + 4)) * sizeof(float);
-  auto kernel = vec ? mha_kernel<true> : mha_kernel<false>;
+  auto kernel = vec ? mha_kernel<T, true> : mha_kernel<T, false>;
   if (smem > 48 * 1024) {
     // above 48 KB a launch has to opt in; the attribute is per function and device
     const cudaError_t err = cudaFuncSetAttribute(
@@ -355,6 +420,26 @@ extern "C" int mha_qkv_f32(const float* qkv, float* out, int b, int h, int dh, i
   const Strides os{static_cast<long long>(t) * d, dh, d, 1};
   const bool vec = dh % 4 == 0 && reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return launch(qkv, qkv + d, qkv + 2 * d, out, in, os, b, h, dh, t, scale, vec,
+                static_cast<cudaStream_t>(stream));
+}
+
+// As mha_f32 on bf16 q, k, v and out; float32 inside.
+extern "C" int mha_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                        __nv_bfloat16* out, int b, int h, int dh, int t, void* stream) {
+  const Strides s{static_cast<long long>(h) * dh * t, dh * t, 1, t};
+  return launch(q, k, v, out, s, s, b, h, dh, t, 1.0f, false, static_cast<cudaStream_t>(stream));
+}
+
+// As mha_qkv_f32 on a bf16 projection and output (8-byte pieces where Dh % 4
+// == 0 and both are 8-byte aligned); q scaled in float32.
+extern "C" int mha_qkv_bf16(const __nv_bfloat16* qkv, __nv_bfloat16* out, int b, int h, int dh,
+                            int t, float scale, void* stream) {
+  const int d = h * dh;
+  const Strides in{static_cast<long long>(t) * 3 * d, dh, 3 * d, 1};
+  const Strides os{static_cast<long long>(t) * d, dh, d, 1};
+  const bool vec = dh % 4 == 0 && reinterpret_cast<uintptr_t>(qkv) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 8 == 0;
   return launch(qkv, qkv + d, qkv + 2 * d, out, in, os, b, h, dh, t, scale, vec,
                 static_cast<cudaStream_t>(stream));
 }

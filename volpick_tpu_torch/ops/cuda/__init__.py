@@ -8,6 +8,9 @@ from __future__ import annotations
 
 import torch
 
+# element type -> suffix of a kernel's C entry points (K2, K5 and K7 have both)
+ENTRY_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
 
 def refuse_autograd(who: str, **tensors: torch.Tensor) -> None:
     """Raise ValueError when autograd is recording and one of `tensors`

@@ -21,6 +21,12 @@ under the max-subtracted softmax. Two entries share the kernel:
 
 Each entry takes its twin for CPU tensors and the kernel for CUDA tensors;
 there is no other route. ``launches`` counts the kernel launches of both.
+
+Both entries take float32 or bfloat16 (all operands of one type). On bf16
+the kernel computes in float32 from the bf16 values (projections, energies,
+softmax, values) and writes bf16, as the Pallas kernel accumulates its value
+product in float32 and writes ``x.dtype``; the twins do the same arithmetic.
+There is no route that casts bf16 up and calls the float32 entry.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import Dict
 
 import torch
 
-from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
+from volpick_tpu_torch.ops.cuda import ENTRY_SUFFIX, _build, refuse_autograd
 
 # what a CTA of an H100 can be given with the opt-in attribute; the kernel
 # keeps q, k, x, Wa and the (T, T) energies of its windows there (and in
@@ -40,18 +46,23 @@ MAX_SHARED_BYTES = 227 * 1024
 MAX_WINDOWS_PER_CTA = 4
 
 launches = 0  # kernel launches made by addattn and addattn_x on CUDA tensors
+bf16_launches = 0  # of them, launches of the bf16 instantiation
 
 
 def addattn_reference(
     x: torch.Tensor, q: torch.Tensor, k: torch.Tensor, wa: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     """Plain PyTorch twin of ``addattn``, on any device: x (B, C, T), q and k
-    (B, T, U) with bh folded into q, wa (U,)."""
+    (B, T, U) with bh folded into q, wa (U,). bfloat16 operands: float32
+    arithmetic on their values, the result rounded to bf16."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, q, k, wa = (a.float() for a in (x, q, k, wa))
     h = torch.tanh(q[:, :, None, :] + k[:, None, :, :])  # (B, T, T, U)
     e = (h * wa).sum(dim=-1)
     e = torch.exp(e - e.amax(dim=-1, keepdim=True))
     a = e / (e.sum(dim=-1, keepdim=True) + eps)
-    return torch.einsum("bcs,bts->bct", x, a)
+    return torch.einsum("bcs,bts->bct", x, a).to(dtype)
 
 
 def addattn_x_reference(
@@ -59,9 +70,14 @@ def addattn_x_reference(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """Plain PyTorch twin of ``addattn_x``, on any device: the two projections
-    as matmuls, then ``addattn_reference``."""
+    as matmuls, then ``addattn_reference``. bfloat16 operands: the projections
+    too are float32 arithmetic on their values (the kernel keeps q and k in
+    float32), the result rounded to bf16."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, wt, bh, wx, wa = (a.float() for a in (x, wt, bh, wx, wa))
     xt = x.transpose(1, 2)
-    return addattn_reference(x, xt @ wt + bh, xt @ wx, wa, eps)
+    return addattn_reference(x, xt @ wt + bh, xt @ wx, wa, eps).to(dtype)
 
 
 def _round4(n: int) -> int:
@@ -100,9 +116,11 @@ def windows_per_cta(b: int, c: int, t: int, u: int, n_sm: int, project: bool = F
 
 
 def _check_floats(x: torch.Tensor, **tensors: torch.Tensor) -> None:
+    if x.dtype not in ENTRY_SUFFIX:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, a in dict(x=x, **tensors).items():
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.dtype != x.dtype:
+            raise TypeError(f"{name} must be {x.dtype} as x is, got {a.dtype}")
         if a.device != x.device:
             raise ValueError(f"{name} is on {a.device}, x on {x.device}")
 
@@ -135,9 +153,11 @@ def _check_x(x, wt, bh, wx, wa) -> None:
 
 
 def _launch(entry: str, x: torch.Tensor, operands, u: int, eps: float, project: bool) -> torch.Tensor:
-    """Launch `entry` on x (B, C, T) and its other operands (all CUDA, checked
-    for shape and type by the caller)."""
-    global launches
+    """Launch `entry` (its name without the type suffix) on x (B, C, T) and
+    its other operands (all CUDA, checked for shape and type by the caller);
+    the instantiation is the one of x's type."""
+    global launches, bf16_launches
+    entry = f"{entry}_{ENTRY_SUFFIX[x.dtype]}"
     refuse_autograd(entry, x=x, **dict(operands))
     b, c, t = x.shape
     for name, a in [("x", x)] + operands:
@@ -165,6 +185,7 @@ def _launch(entry: str, x: torch.Tensor, operands, u: int, eps: float, project: 
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     launches += 1
+    bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
@@ -178,7 +199,7 @@ def addattn(
         return addattn_reference(x, q, k, wa, eps)
     if x.device.type != "cuda":
         raise ValueError(f"addattn runs on cpu or cuda, got {x.device}")
-    return _launch("addattn_f32", x, [("q", q), ("k", k), ("wa", wa)], q.shape[2], eps, False)
+    return _launch("addattn", x, [("q", q), ("k", k), ("wa", wa)], q.shape[2], eps, False)
 
 
 def addattn_x(
@@ -193,7 +214,7 @@ def addattn_x(
         return addattn_x_reference(x, wt, bh, wx, wa, eps)
     if x.device.type != "cuda":
         raise ValueError(f"addattn_x runs on cpu or cuda, got {x.device}")
-    return _launch("addattn_x_f32", x, [("wt", wt), ("bh", bh), ("wx", wx), ("wa", wa)],
+    return _launch("addattn_x", x, [("wt", wt), ("bh", bh), ("wx", wx), ("wa", wa)],
                    wt.shape[1], eps, True)
 
 

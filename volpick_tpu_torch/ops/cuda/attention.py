@@ -5,8 +5,8 @@ Port of ``volpick_tpu/ops/pallas/attention.py::mha_pallas``, in two layouts
 served by one kernel body:
 
 - ``mha(q, k, v, n_heads)`` keeps the JAX package's contract: q, k, v are
-  (B, H·Dh, T) float32, packed head-major, with any query scaling already
-  folded into q; the output has the shape of q.
+  (B, H·Dh, T), packed head-major, with any query scaling already folded
+  into q; the output has the shape and type of q.
 - ``mha_qkv(qkv, scale)`` reads q, k, v in place from a model's projection
   (B, T, 3, H, Dh), multiplies ``scale`` into q inside the kernel (the same
   single float32 multiply as ``q * scale``) and returns (B, T, H·Dh): no
@@ -16,6 +16,13 @@ Per window b and head h the output is ``softmax_s(q_hᵀ k_h) v_h``: the row
 max is subtracted, and the exponentials are divided by their plain sum (no
 eps). Each entry takes its twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no other route.
+
+Both entries take float32 or bfloat16. On bf16 the kernel computes the
+logits, the softmax and both products in float32 from the bf16 values (the
+scale of ``mha_qkv`` too), rounds the probabilities to bf16 before the value
+product, as the Pallas kernel casts them to ``v.dtype``, and writes bf16; the
+twins do the same arithmetic. There is no route that casts bf16 up and calls
+the float32 entry.
 """
 
 from __future__ import annotations
@@ -24,33 +31,45 @@ import ctypes
 
 import torch
 
-from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
+from volpick_tpu_torch.ops.cuda import ENTRY_SUFFIX, _build, refuse_autograd
 
 MAX_HEAD_DIM = 32  # eight float4 channel groups a head in the PV product
 MAX_TOKENS = 128  # four scores per lane in the softmax
 MAX_SHARED_BYTES = 227 * 1024  # what a block may opt in to on sm_90
 
 launches = 0  # kernel launches made by mha and mha_qkv on CUDA tensors
+bf16_launches = 0  # of them, launches of the bf16 instantiation
+
+
+def _softmax_rows(s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The max-subtracted softmax over the last axis, divided by the plain
+    sum; on bf16 operands the probabilities are rounded to bf16."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    return p.to(dtype).float() if dtype == torch.bfloat16 else p
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """Plain PyTorch twin, on any device."""
+    """Plain PyTorch twin, on any device; bf16 as the module's note says."""
+    dtype = q.dtype
+    if dtype == torch.bfloat16:
+        q, k, v = (a.float() for a in (q, k, v))
     b, d, t = q.shape
     qh, kh, vh = (a.reshape(b, n_heads, d // n_heads, t) for a in (q, k, v))
-    s = torch.einsum("bhdt,bhds->bhts", qh, kh)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhts,bhds->bhdt", p, vh).reshape(b, d, t)
+    p = _softmax_rows(torch.einsum("bhdt,bhds->bhts", qh, kh), dtype)
+    return torch.einsum("bhts,bhds->bhdt", p, vh).reshape(b, d, t).to(dtype)
 
 
 def mha_qkv_reference(qkv: torch.Tensor, scale: float) -> torch.Tensor:
-    """Plain PyTorch twin of ``mha_qkv``, on any device."""
+    """Plain PyTorch twin of ``mha_qkv``, on any device; bf16 as the module's
+    note says (q scaled in float32)."""
+    dtype = qkv.dtype
+    if dtype == torch.bfloat16:
+        qkv = qkv.float()
     b, t, _, h, dh = qkv.shape
     q, k, v = qkv.unbind(2)
-    s = torch.einsum("bthd,bshd->bhts", q * scale, k)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhts,bshd->bthd", p, v).reshape(b, t, h * dh)
+    p = _softmax_rows(torch.einsum("bthd,bshd->bhts", q * scale, k), dtype)
+    return torch.einsum("bhts,bshd->bthd", p, v).reshape(b, t, h * dh).to(dtype)
 
 
 def shared_bytes(dh: int, t: int) -> int:
@@ -82,16 +101,18 @@ def _check(q, k, v, n_heads: int) -> None:
             raise ValueError(f"{name} is {tuple(a.shape)}, q is {tuple(q.shape)}")
     if n_heads < 1 or q.shape[1] % n_heads:
         raise ValueError(f"{q.shape[1]} channels do not split into {n_heads} heads")
+    if q.dtype not in ENTRY_SUFFIX:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, a in (("q", q), ("k", k), ("v", v)):
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} as q is, got {a.dtype}")
         if a.device != q.device:
             raise ValueError(f"{name} is on {a.device}, q on {q.device}")
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Per-head softmax attention over head-major packed (B, H·Dh, T) tensors."""
-    global launches
+    global launches, bf16_launches
     _check(q, k, v, n_heads)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, n_heads)
@@ -106,25 +127,27 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torc
     out = torch.empty_like(q)
     if b * t == 0:
         return out
-    fn = _build.function("mha_f32", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    entry = f"mha_{ENTRY_SUFFIX[q.dtype]}"
+    fn = _build.function(entry, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n_heads, d // n_heads, t,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"mha_f32 launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     launches += 1
+    bf16_launches += out.dtype == torch.bfloat16
     return out
 
 
 def mha_qkv(qkv: torch.Tensor, scale: float) -> torch.Tensor:
     """Per-head softmax attention read in place from a (B, T, 3, H, Dh)
     projection, q scaled by `scale`; returns (B, T, H·Dh)."""
-    global launches
+    global launches, bf16_launches
     if qkv.dim() != 5 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be (B, T, 3, H, Dh), got {tuple(qkv.shape)}")
-    if qkv.dtype != torch.float32:
-        raise TypeError(f"qkv must be float32, got {qkv.dtype}")
+    if qkv.dtype not in ENTRY_SUFFIX:
+        raise TypeError(f"qkv must be float32 or bfloat16, got {qkv.dtype}")
     if qkv.device.type == "cpu":
         return mha_qkv_reference(qkv, scale)
     if qkv.device.type != "cuda":
@@ -134,11 +157,12 @@ def mha_qkv(qkv: torch.Tensor, scale: float) -> torch.Tensor:
     _check_limits(dh, t)
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
-    out = torch.empty((b, t, h * dh), dtype=torch.float32, device=qkv.device)
+    out = torch.empty((b, t, h * dh), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
+    entry = f"mha_qkv_{ENTRY_SUFFIX[qkv.dtype]}"
     fn = _build.function(
-        "mha_qkv_f32",
+        entry,
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
     )
     err = fn(
@@ -146,6 +170,7 @@ def mha_qkv(qkv: torch.Tensor, scale: float) -> torch.Tensor:
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"mha_qkv_f32 launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     launches += 1
+    bf16_launches += out.dtype == torch.bfloat16
     return out

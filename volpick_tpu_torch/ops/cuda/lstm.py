@@ -21,6 +21,15 @@ outside the kernel, against W_ih with its rows permuted unit-major
 (``unit_major``), so that a thread's four gate inputs lie side by side; the
 kernel adds the bias and runs the recurrence. Each entry takes its twin for
 a CPU tensor and the kernel for a CUDA tensor; there is no other route.
+
+Both forms take float32 or bfloat16 (x and the weights of one type). The
+bfloat16 entry does what the Pallas kernel does on bf16 operands: the
+projection is a bf16 matrix product (float32 sums, rounded to bf16), h and c
+are carried and the gates computed in float32, and the states are written as
+bf16. The bf16 twins take the projection from the same function as the
+kernel's wrapper, so that on the card a rounding of the matrix product that
+falls otherwise in another library call does not separate kernel and twin.
+There is no route that casts bf16 up and calls the float32 entry.
 """
 
 from __future__ import annotations
@@ -30,12 +39,13 @@ from typing import Sequence
 
 import torch
 
-from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
+from volpick_tpu_torch.ops.cuda import ENTRY_SUFFIX, _build, refuse_autograd
 
 MAX_HIDDEN = 32  # a window's units are the lanes of one warp
 MAX_BRANCHES = 32  # bits of the kernel's reverse mask
 
 launches = 0  # kernel launches made by lstm_multi and lstm_branches on CUDA tensors
+bf16_launches = 0  # of them, launches of the bf16 instantiation
 
 
 def lstm_multi_reference(
@@ -43,7 +53,11 @@ def lstm_multi_reference(
 ) -> torch.Tensor:
     """Plain PyTorch twin, on any device: w_ih (G, 4H, C), w_hh (G, 4H, H),
     bias (G, 4H) (= b_ih + b_hh). The input projection is hoisted out of the
-    time loop, as in the JAX scan."""
+    time loop, as in the JAX scan. On bfloat16 operands the projection is
+    the wrapper's own bf16 product (``project``) and the recurrence runs in
+    float32 (``_recurrence_reference``), the states rounded to bf16."""
+    if xs.dtype == torch.bfloat16:
+        return _recurrence_reference(project(xs, w_ih), w_hh, bias)
     g, b, c, t = xs.shape
     h_dim = w_hh.shape[-1]
     x_proj = torch.einsum("tgbc,ghc->tgbh", xs.permute(3, 0, 1, 2), w_ih) + bias[:, None, :]
@@ -59,15 +73,45 @@ def lstm_multi_reference(
     return torch.stack(hs, dim=-1)  # (G, B, H, T)
 
 
+def _recurrence_reference(xp: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's arithmetic in plain PyTorch: xp (G, B, T, 4H), the
+    bf16 projection without bias in unit-major order (``unit_major``), is
+    widened to float32, as are W_hh and the bias; gates, h and c in float32;
+    the states (G, B, H, T) come back rounded to xp's type."""
+    g, b, t, four_h = xp.shape
+    h_dim = four_h // 4
+    w = w_hh.float()
+    bias_um = bias.float().reshape(g, 1, 4, h_dim).transpose(2, 3)  # (G, 1, H, 4)
+    h = xp.new_zeros((g, b, h_dim), dtype=torch.float32)
+    cell = torch.zeros_like(h)
+    hs = []
+    for step in range(t):
+        rec = torch.einsum("gbh,gkh->gbk", h, w).reshape(g, b, 4, h_dim).transpose(2, 3)
+        gates = (xp[:, :, step].float().reshape(g, b, h_dim, 4) + bias_um) + rec
+        i, f, gg, o = gates.unbind(-1)
+        cell = torch.sigmoid(f) * cell + torch.sigmoid(i) * torch.tanh(gg)
+        h = torch.sigmoid(o) * torch.tanh(cell)
+        hs.append(h)
+    return torch.stack(hs, dim=-1).to(xp.dtype)
+
+
 def lstm_branches_reference(
     x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
     reverse: Sequence[bool],
 ) -> torch.Tensor:
     """Plain PyTorch twin of ``lstm_branches``, on any device: the reversed
     branches scan a time-flipped copy of x and their states are flipped back,
-    then the branches are concatenated on the channel axis."""
-    xs = torch.stack([x.flip(-1) if r else x for r in reverse])
-    hs = lstm_multi_reference(xs, w_ih, w_hh, bias)
+    then the branches are concatenated on the channel axis. On bfloat16
+    operands the projection is the wrapper's own (``project_shared``), the
+    reversed branches scan its time-flipped copy."""
+    if x.dtype == torch.bfloat16:
+        b, _, t = x.shape
+        xp = project_shared(x, w_ih).reshape(b, t, len(reverse), -1).permute(2, 0, 1, 3)
+        xp = torch.stack([xp[g].flip(1) if r else xp[g] for g, r in enumerate(reverse)])
+        hs = _recurrence_reference(xp, w_hh, bias)
+    else:
+        xs = torch.stack([x.flip(-1) if r else x for r in reverse])
+        hs = lstm_multi_reference(xs, w_ih, w_hh, bias)
     return torch.cat([hs[g].flip(-1) if r else hs[g] for g, r in enumerate(reverse)], dim=1)
 
 
@@ -87,9 +131,11 @@ def _check_weights(g: int, c: int, w_ih, w_hh, bias, like: torch.Tensor) -> None
         raise ValueError(f"w_ih must be {(g, 4 * h, c)}, got {tuple(w_ih.shape)}")
     if tuple(bias.shape) != (g, 4 * h):
         raise ValueError(f"bias must be {(g, 4 * h)}, got {tuple(bias.shape)}")
+    if like.dtype not in ENTRY_SUFFIX:
+        raise TypeError(f"x must be float32 or bfloat16, got {like.dtype}")
     for name, t in (("x", like), ("w_ih", w_ih), ("w_hh", w_hh), ("bias", bias)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != like.dtype:
+            raise TypeError(f"{name} must be {like.dtype} as x is, got {t.dtype}")
         if t.device != like.device:
             raise ValueError(f"{name} is on {t.device}, x on {like.device}")
 
@@ -105,23 +151,30 @@ def recurrence(
     out: torch.Tensor, out_strides, b: int, t: int, reverse_mask: int = 0,
 ) -> None:
     """Launch the kernel on a projected input: gate inputs of (branch g,
-    window n, time s, unit u) are the 4 floats of `xp` at
+    window n, time s, unit u) are the 4 elements of `xp` at
     g·x_strides[0] + n·x_strides[1] + s·x_strides[2] + 4u; its state goes to
-    `out` at g·out_strides[0] + n·out_strides[1] + u·T + s. CUDA only."""
-    global launches
+    `out` at g·out_strides[0] + n·out_strides[1] + u·T + s. CUDA only; the
+    instantiation (float32 or bf16) is the one of xp's type, which the other
+    three share."""
+    global launches, bf16_launches
     refuse_autograd("lstm recurrence", xp=xp, w_hh=w_hh, bias=bias)
     g, _, h = w_hh.shape
     if h > MAX_HIDDEN:
         raise ValueError(f"hidden size {h} exceeds the kernel's limit {MAX_HIDDEN}")
     if reverse_mask and g > MAX_BRANCHES:
         raise ValueError(f"{g} branches exceed the {MAX_BRANCHES} the reverse flags cover")
+    if xp.dtype not in ENTRY_SUFFIX:
+        raise TypeError(f"xp must be float32 or bfloat16, got {xp.dtype}")
     for name, a in (("xp", xp), ("w_hh", w_hh), ("bias", bias), ("out", out)):
         if a.device.type != "cuda" or not a.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
+        if a.dtype != xp.dtype:
+            raise TypeError(f"{name} must be {xp.dtype} as xp is, got {a.dtype}")
     if g * b * t == 0:
         return
+    entry = f"lstm_multi_{ENTRY_SUFFIX[xp.dtype]}"
     fn = _build.function(
-        "lstm_multi_f32",
+        entry,
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 5
         + [ctypes.c_uint, ctypes.c_void_p],
     )
@@ -131,8 +184,9 @@ def recurrence(
         torch.cuda.current_stream(xp.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"lstm_multi_f32 launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     launches += 1
+    bf16_launches += xp.dtype == torch.bfloat16
 
 
 def project(xs: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
@@ -165,7 +219,7 @@ def lstm_multi(
     h = w_hh.shape[2]
     if not w_hh.is_contiguous():
         raise ValueError("w_hh must be contiguous")
-    out = torch.empty((g, b, h, t), dtype=torch.float32, device=xs.device)
+    out = torch.empty((g, b, h, t), dtype=xs.dtype, device=xs.device)
     xp = project(xs, w_ih) if out.numel() else out  # (G, B, T, 4H)
     recurrence(xp, (b * t * 4 * h, t * 4 * h, 4 * h), w_hh, bias.contiguous(),
                out, (b * h * t, h * t), b, t)
@@ -191,7 +245,7 @@ def lstm_branches(
     h = w_hh.shape[2]
     if not w_hh.is_contiguous():
         raise ValueError("w_hh must be contiguous")
-    out = torch.empty((b, g * h, t), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, g * h, t), dtype=x.dtype, device=x.device)
     xp = project_shared(x, w_ih) if out.numel() else out  # (B, T, G·4H)
     mask = sum(1 << i for i, r in enumerate(reverse) if r)
     recurrence(xp, (4 * h, t * g * 4 * h, g * 4 * h), w_hh, bias.contiguous(),

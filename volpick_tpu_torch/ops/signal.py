@@ -1,15 +1,17 @@
 """Per-window signal conditioning (PyTorch).
 
-Port of the conditioning half of ``volpick_tpu/ops/signal.py``: demean or
-linear detrend per channel, then peak or std amplitude normalisation.
-Waveforms are (..., C, W), time last. The filters and resampling of the JAX
-module are not ported yet.
+Port of ``volpick_tpu/ops/signal.py``: demean or linear detrend per
+channel, then peak or std amplitude normalisation; the cosine taper, the
+Butterworth second-order sections (designed by scipy on the host), the biquad
+cascade ``sosfilt`` and the polyphase ``resample_poly_device``. Waveforms are
+(..., C, W), time last, on any device.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -134,3 +136,81 @@ def condition_windows_from_span(
         det = det - slope * t
     dims = (-1,) if per_channel else (-2, -1)
     return det / (_scale(det, norm, dims) + eps)
+
+
+def taper_cosine(x: torch.Tensor, fraction: float = 0.05, dim: int = -1) -> torch.Tensor:
+    """Symmetric cosine (Tukey) taper, used before filtering long segments."""
+    w = x.shape[dim]
+    n = max(int(w * fraction), 1)
+    ramp = 0.5 * (1 - torch.cos(torch.pi * torch.arange(n, dtype=x.dtype, device=x.device) / n))
+    window = torch.cat([ramp, torch.ones(w - 2 * n, dtype=x.dtype, device=x.device), ramp.flip(0)])
+    shape = [1] * x.dim()
+    shape[dim] = w
+    return x * window.reshape(shape)
+
+
+def sosfilt_coeffs_bandpass(freqmin: float, freqmax: float, fs: float, order: int = 4):
+    """Butterworth bandpass second-order sections (host-side; scipy design)."""
+    from scipy.signal import butter
+
+    return butter(order, [freqmin, freqmax], btype="bandpass", fs=fs, output="sos")
+
+
+def sosfilt_coeffs_highpass(freq: float, fs: float, order: int = 4):
+    from scipy.signal import butter
+
+    return butter(order, freq, btype="highpass", fs=fs, output="sos")
+
+
+def sosfilt(x: torch.Tensor, sos) -> torch.Tensor:
+    """IIR cascade of biquads along the last axis (scipy's ``sosfilt`` with
+    zero initial state), in x's type on x's device.
+
+    A loop over time, as the JAX function's ``lax.scan``: each section
+    carries its two delay states for all leading lanes at once and filters
+    the whole signal before the next section starts. Used for the QC band
+    filters the reference applies on CPU (reference
+    `volpick/data/utils.py:694-713`: 0.3 Hz highpass / 1-20 Hz bandpass)."""
+    sos = torch.as_tensor(np.asarray(sos), dtype=x.dtype, device=x.device)  # (n, 6)
+    w = x.shape[-1]
+    y = x.reshape(-1, w)
+    for section in sos:
+        b0, b1, b2, _, a1, a2 = section.unbind()
+        z1 = y.new_zeros(y.shape[0])
+        z2 = y.new_zeros(y.shape[0])
+        out = []
+        for xt in y.unbind(-1):
+            yt = b0 * xt + z1
+            z1 = b1 * xt - a1 * yt + z2
+            z2 = b2 * xt - a2 * yt
+            out.append(yt)
+        y = torch.stack(out, dim=-1)
+    return y.reshape(x.shape)
+
+
+def resample_poly_device(x: torch.Tensor, up: int, down: int, window_size: int = 64) -> torch.Tensor:
+    """Polyphase rational resampling on the device (Kaiser-windowed sinc FIR),
+    the counterpart of scipy.signal.resample_poly used in the ingest path
+    (reference `volpick/data/convert.py:122-140` resamples all traces to
+    100 Hz): zero-stuff by `up`, one convolution with the FIR taps at stride
+    `down`, trimmed to ceil(W * up / down) samples, as the JAX function's
+    input-dilated ``conv_general_dilated``."""
+    from scipy.signal import firwin
+
+    g = np.gcd(up, down)
+    up, down = up // g, down // g
+    if up == 1 and down == 1:
+        return x
+    max_rate = max(up, down)
+    half_len = (window_size // 2) * max_rate
+    h = firwin(2 * half_len + 1, 1.0 / max_rate, window=("kaiser", 5.0)) * up
+    h = torch.as_tensor(h, dtype=x.dtype, device=x.device)
+
+    w = x.shape[-1]
+    flat = x.reshape(-1, 1, w)
+    stuffed = flat.new_zeros((flat.shape[0], 1, (w - 1) * up + 1))
+    stuffed[..., ::up] = flat
+    out = F.conv1d(stuffed, h.reshape(1, 1, -1), stride=down, padding=half_len)
+    new_w = (w * up) // down + (1 if (w * up) % down else 0)
+    out = out[..., :new_w]
+    return out.reshape(x.shape[:-1] + (out.shape[-1],))

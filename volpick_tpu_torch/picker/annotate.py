@@ -22,13 +22,18 @@ Stream grouping and the result types are the port's own host layer,
 ``volpick_tpu_torch.core``; the picker reads a stream's attributes only, so
 any stream object with the same surface is accepted. With
 ``use_pallas=True`` step 2 runs the conditioning kernel of
-``ops/cuda/conditioning.py`` on framed windows. Everything runs in float32; on CUDA, TF32 is switched
-off for cuDNN convolutions and matmuls while the picker works (and restored
-after), so results stay comparable with the CPU and the JAX reference.
+``ops/cuda/conditioning.py`` on framed windows. With ``precision="float32"``
+(the default) everything runs in float32; on CUDA, TF32 is switched off for
+cuDNN convolutions and matmuls while the picker works (and restored after),
+so results stay comparable with the CPU and the JAX reference. With
+``precision="bfloat16"`` step 3 runs in bf16, the kernels of the forward
+included, and its curves come back as float32, so stacking and trigger
+extraction stay float32, as in the JAX picker.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -71,7 +76,10 @@ class WaveformPicker:
     its windows from its span of the stream when the stride divides the
     window; ``False`` conditions the framed windows one by one. ``None`` reads
     ``$VOLPICK_SPAN_COND`` (``"0"`` is off, any other value on, unset on),
-    once, here."""
+    once, here. ``precision`` is the JAX picker's too: ``"float32"`` or
+    ``"bfloat16"``, which runs the forward on a bf16 copy of the model (its
+    parameters and BatchNorm statistics), made here once; the caller's model
+    keeps its float32 weights."""
 
     def __init__(
         self,
@@ -80,9 +88,13 @@ class WaveformPicker:
         detrend: Optional[bool] = None,
         use_pallas: bool = False,
         span_conditioning: Optional[bool] = None,
+        precision: str = "float32",
     ):
+        if precision not in ("float32", "bfloat16"):
+            raise ValueError(f"precision must be float32|bfloat16, got {precision!r}")
         device = resolve_device(device, "WaveformPicker")
         self.device = device
+        self.precision = precision
         self.model = model.to(device).eval()
         # EQT conditions windows by detrend, PhaseNet by demean (reference
         # `volpick/model/models.py:263,664`). The rule is the JAX picker's,
@@ -102,6 +114,11 @@ class WaveformPicker:
             model.attn = model.resolve_attn()
         if hasattr(model, "resolve_fused"):
             model.fused = model.resolve_fused()
+        # the module the forward runs: the model itself, or its bf16 copy
+        # (JAX casts the whole parameter tree to bf16 the same way)
+        self._net = (
+            copy.deepcopy(self.model).to(torch.bfloat16) if precision == "bfloat16" else self.model
+        )
 
     @property
     def in_samples(self) -> int:
@@ -124,8 +141,11 @@ class WaveformPicker:
 
     # ------------------------------------------------------------ device path
     def _apply_model(self, frames: torch.Tensor) -> torch.Tensor:
-        """Conditioned (N, C, window) windows → (N, K, window) float32 probabilities."""
-        out = self.model(frames)
+        """Conditioned (N, C, window) windows → (N, K, window) float32
+        probabilities, the forward at the picker's precision."""
+        if self.precision == "bfloat16":
+            frames = frames.to(torch.bfloat16)
+        out = self._net(frames)
         if isinstance(out, tuple):  # EQT family: per-head (N, window) outputs
             out = torch.stack(out, dim=1)
         return out.float()
