@@ -170,6 +170,28 @@
    classify_arrays windows/s by the host clock and the summed kernel time of
    one classify_arrays under torch.profiler in both precisions.
 
+10. trains and inspects: EQTransformer at full width (seeded) trained with
+   examples/configs/eqtransformer_swa.json's settings (swa_lrs 5e-5, its
+   lr and plateau) on phase 7's pool, 4 epochs of 2 steps at batch 256 with
+   swa_epoch_start 0.5, so that the last 2 epochs collect; fails unless the
+   lr of those epochs' steps is swa_lrs and only there, swa_n is 2,
+   swa_params is the mean of the two epoch-end states set aside (1e-6),
+   a fresh Trainer restored from the run's last.ckpt holds the same
+   averages, the steps launch no kernel and validation K2 4 a forward (by
+   the counters and by the profiler's rows). Then utils/profiling.py's
+   trace() around one classify_arrays of EQTransformer on the bench stream
+   (batch 256): summarize_trace's card plane must count the launch
+   counters' K2 and K1 (32 and 1); prints its top rows, device_memory_stats'
+   peak and a StepTimer summary of 5 classifies. K1 on phase 3's curves at
+   thresholds (t, t / 2) must give exactly picks_from_prob_numpy's picks
+   and values on every row with fewer than K runs. plot_prediction_examples
+   (or, where matplotlib is not installed, the arrays it draws) on 4
+   synthetic traces: the card's curves within 2e-4 of device="cpu"'s, K2 4
+   a trace; screen_dataset_with_models with the heads stretched, at a
+   threshold in the widest gap between the traces' largest probabilities:
+   the card's flags equal the CPU port's (plot_flagged where matplotlib is
+   installed). Prints the phase's seconds.
+
 Exits non-zero on any failure and without a CUDA device. The last two lines
 are a JSON summary of the kernels and {"ok": true, "device": {...}}.
 """
@@ -210,6 +232,13 @@ GRAD_TOL = 1e-3
 # rows a phase), the card-vs-CPU curves on EVAL_CPU_WINDOWS windows
 EVAL_SETS, EVAL_THRESHOLDS, EVAL_BATCH, EVAL_K = ("dev", "test"), tuple(np.arange(0.1, 0.95, 0.1)), 256, 64
 EVAL_CPU_WINDOWS, EVAL_PICK_SHARE = 32, 0.1
+# phase 10: SWA with the published SWA config, SWA_EPOCHS epochs of 2 steps at
+# SWA_BATCH, collecting from int(SWA_START * SWA_EPOCHS) on; the prediction
+# panels' curves on the card against the CPU's (the EQT forward pin); the QC
+# screen over QC_EVENTS + QC_NOISE traces at a threshold in a gap > QC_GAP
+SWA_CONFIG = "examples/configs/eqtransformer_swa.json"
+SWA_START, SWA_EPOCHS, SWA_BATCH, SWA_TOL = 0.5, 4, 256, 1e-6
+PLOT_TOL, QC_EVENTS, QC_NOISE, QC_GAP = 2e-4, 16, 8, 2e-3
 GOLDEN_METRICS = ["prob_thre", "tp_thre"] + [  # the reference's {set}_metrics.csv (`eval_taks0.py:722-783`)
     f"{ph}_{c}" for ph in ("p", "s") for c in (
         "TP", "FP", "FN", "precision", "recall", "F1score", "mean", "median", "std", "MAE", "MAD", "out",
@@ -1037,6 +1066,277 @@ def pick_phase(dev, card, zero_counts, read_counts, data, t_start) -> dict:
             os.environ.pop("VOLPICK_TPU_MODELS", None)
         else:
             os.environ["VOLPICK_TPU_MODELS"] = saved_models
+
+
+def inspect_phase(dev, card, zero_counts, read_counts, waves, meta, eqt_thresholds, eqt_launches,
+                  trig_inputs) -> dict:
+    """Phase 10, train and inspect: SWA training with the published SWA config
+    on the card, the profiled classify, the host oracle of the picks against
+    K1, the prediction-example panels and the QC screen. Fails on any miss of
+    its checks."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from scipy.signal import butter, sosfilt
+
+    from volpick_tpu_torch.data.synthetic import synthetic_dataset
+    from volpick_tpu_torch.device import inference_work
+    from volpick_tpu_torch.models import load_model
+    from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
+    from volpick_tpu_torch.ops.triggers import picks_from_prob_numpy
+    from volpick_tpu_torch.ops.windows import frame_windows, window_starts
+    from volpick_tpu_torch.picker import WaveformPicker
+    from volpick_tpu_torch.picker.stage_times import SR, bench_stream_array, profiled
+    from volpick_tpu_torch.pipeline.generator import RawBatchSource, TrainGenerator, _onset_arrays
+    from volpick_tpu_torch.train.trainer import Trainer, make_augment_config
+    from volpick_tpu_torch.utils import plotting, qc
+    from volpick_tpu_torch.utils.profiling import StepTimer, device_memory_stats, summarize_trace, trace
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    tmp = tempfile.mkdtemp(prefix="volpick_inspect_")
+    launches = {}
+    try:
+        # ---- SWA with eqtransformer_swa.json's settings: SWA_EPOCHS epochs of 2
+        # steps, a fractional start that collects in the last two
+        with open(os.path.join(here, SWA_CONFIG)) as f:
+            config = json.load(f)
+        margs = config["model_args"]
+        swa = dict(config["swa"], swa_epoch_start=SWA_START)
+        p = np.array([m["trace_p_arrival_sample"] for m in meta], np.float32)
+        s = np.array([m["trace_s_arrival_sample"] for m in meta], np.float32)
+        is_lp = np.array([m["source_type"] == "lp" for m in meta], np.float32)
+        is_dev = np.array([m["split"] == "dev" for m in meta])
+        event = ~np.isnan(p) | ~np.isnan(s)
+        n_noise = SWA_BATCH // 2
+        tr_idx = np.r_[np.where(~is_dev & event)[0][: 2 * SWA_BATCH - n_noise],
+                       np.where(~is_dev & ~event)[0][:n_noise]]
+
+        def source(idx):
+            return RawBatchSource.from_arrays(waves[idx], p[idx], s[idx], is_lp=is_lp[idx])
+
+        model = load_model("eqtransformer", seed=0, device=dev)
+        cfg = make_augment_config(model, margs, bool(config["stack_data"]))
+        dev_idx = np.where(is_dev)[0]
+        train_gen = TrainGenerator(source(tr_idx), cfg, SWA_BATCH, eq_dataset=source(tr_idx[event[tr_idx]]),
+                                   noise_dataset=source(tr_idx[~event[tr_idx]]), seed=42, device=dev)
+        dev_gen = TrainGenerator(source(dev_idx), cfg, SWA_BATCH, eq_dataset=source(dev_idx[event[dev_idx]]),
+                                 noise_dataset=source(dev_idx[~event[dev_idx]]), seed=43, drop_last=False,
+                                 device=dev)
+        if len(train_gen) != 2:
+            fail(f"swa: {len(train_gen)} steps an epoch, want 2")
+        trainer = Trainer(model, lr=float(margs["lr"]), swa=swa, lr_scheduler=margs["lr_scheduler"],
+                          lr_scheduler_args=margs["lr_scheduler_args"], device=dev)
+        start = int(SWA_START * SWA_EPOCHS)
+        lrs, aside, val_batches = [], [], [0]
+        timer = StepTimer(device=dev)
+        fit_step, fit_eval = trainer.train_step, trainer.eval_step
+
+        def recorded_step(batch, lr, generator=None):
+            with timer:
+                loss = fit_step(batch, lr, generator)
+            lrs.append(lr)
+            # the state after an epoch's last step is the one SWA collects at its end
+            if len(lrs) % 2 == 0 and len(lrs) // 2 - 1 >= start:
+                aside.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+            return loss
+
+        def counted_eval(batch):
+            val_batches[0] += 1
+            return fit_eval(batch)
+
+        trainer.train_step, trainer.eval_step = recorded_step, counted_eval
+        zero_counts()
+        result = trainer.fit(train_gen, dev_gen, max_epochs=SWA_EPOCHS, save_dir=tmp, experiment="swa",
+                             hparams=config, tensorboard=False)
+        torch.cuda.synchronize()
+        launches["eqtransformer/swa fit"] = got = read_counts()
+        trainer.train_step, trainer.eval_step = fit_step, fit_eval
+        want = dict.fromkeys(got, 0)
+        want["lstm_multi"] = 4 * val_batches[0]
+        if val_batches[0] < SWA_EPOCHS or got != want:
+            fail(f"swa: launches {got} over {val_batches[0]} validation batches, want {want} "
+                 "(no kernel in a train step, K2 4 a validation forward)")
+        losses = [h["train_loss"] for h in result["history"]] + [h["val_loss"] for h in result["history"]]
+        if not all(np.isfinite(losses)):
+            fail(f"swa: losses {losses}")
+        swa_lr = float(config["swa"]["swa_lrs"])
+        if lrs[2 * start:] != [swa_lr] * (2 * (SWA_EPOCHS - start)) or swa_lr in lrs[: 2 * start]:
+            fail(f"swa: learning rates {lrs}, want {swa_lr} from epoch {start} on and only there")
+        if trainer.swa_n != SWA_EPOCHS - start or len(aside) != 2:
+            fail(f"swa: swa_n {trainer.swa_n} with {len(aside)} epoch-end states set aside, want 2")
+        mean_err = 0.0
+        for k, v in trainer.swa_params.items():
+            if v.is_floating_point():
+                mean_err = max(mean_err, float((v - (aside[0][k] + aside[1][k]) / 2).abs().max()))
+            elif not torch.equal(v, aside[1][k]):
+                fail(f"swa: {k} is not the latest value")
+        if not mean_err <= SWA_TOL:
+            fail(f"swa: swa_params {mean_err} from the mean of the two epoch-end states (tol {SWA_TOL})")
+        ckpt = os.path.join(tmp, "swa", "checkpoints", "last.ckpt")
+        fresh = Trainer(load_model("eqtransformer", seed=1, device=dev), swa=swa, device=dev).restore(ckpt)
+        if fresh.swa_n != trainer.swa_n or set(fresh.swa_params) != set(trainer.swa_params) or not all(
+                torch.equal(fresh.swa_params[k], v) for k, v in trainer.swa_params.items()):
+            fail("swa: the restored swa_params / swa_n are not the run's")
+        dev_batch = next(iter(dev_gen.epoch()))
+        _, _, events = profiled(lambda: trainer.eval_step(dev_batch))
+        k2_rows = sum(e.count for e in events if "lstm_multi_kernel" in e.key)
+        if k2_rows != 4:
+            fail(f"swa: the profiler counts {k2_rows} K2 kernels in a validation forward, want 4")
+        steps = timer.summary()
+        print(f"swa: EQTransformer at full width, {SWA_CONFIG} (swa_lrs {swa_lr}, swa_epoch_start {SWA_START} "
+              f"for {SWA_EPOCHS} epochs of 2 steps at batch {SWA_BATCH}): lrs {lrs}; swa_n {trainer.swa_n}, "
+              f"swa_params within {mean_err:.2e} of the mean of the two epoch-end states (tol {SWA_TOL}); "
+              f"restored from last.ckpt equal; launches {got} ({val_batches[0]} validation batches), K2 "
+              f"{k2_rows} in a validation forward by the profiler; train step on {card}: p50 "
+              f"{steps['p50_s'] * 1e3:.2f} ms, mean {steps['mean_s'] * 1e3:.2f} ms over {steps['steps']} steps "
+              f"(StepTimer, synchronised; the first step's warm-up included)")
+        swa_out = dict(lrs=lrs, swa_n=trainer.swa_n, mean_err=mean_err, steps=steps, k2_profiler=k2_rows,
+                       val_batches=val_batches[0])
+        del model, trainer, fresh, train_gen, dev_gen, aside
+
+        # ---- the profiled classify: EQTransformer on the bench stream, batch 256
+        data = bench_stream_array(seed=0)
+        kw = dict(overlap=5500, blinding=(500, 500), batch_size=256)
+        model = load_model("eqtransformer", seed=0, device=dev)
+        picker = WaveformPicker(model, device=dev)
+        picker.classify_arrays(data, eqt_thresholds, **kw)
+        log_dir = os.path.join(tmp, "trace")
+        zero_counts()
+        with trace(log_dir):
+            picker.classify_arrays(data, eqt_thresholds, **kw)
+            torch.cuda.synchronize()
+        launches["eqtransformer/traced classify"] = got = read_counts()
+        if got != eqt_launches:
+            fail(f"profiling: launches {got} under trace(), want phase 4's {eqt_launches}")
+        planes = summarize_trace(log_dir, top=10**6)
+        card_planes = [name for name in planes if "GPU" in name]
+        if len(card_planes) != 1:
+            fail(f"profiling: planes {list(planes)}, want one of the card")
+        rows = planes[card_planes[0]]
+        seen = {kn: sum(r["count"] for r in rows if f"{kn}_kernel" in r["name"])
+                for kn in ("lstm_multi", "trigger_extract")}
+        if seen != {kn: got[kn] for kn in seen}:
+            fail(f"profiling: the card plane counts {seen}, the launch counters {got}")
+        peak = device_memory_stats()[str(dev)]["allocated_bytes.all.peak"]
+        timer = StepTimer(device=dev)
+        for _ in range(5):
+            with timer:
+                picker.classify_arrays(data, eqt_thresholds, **kw)
+        classify = timer.summary()
+        print(f"profiling: trace() around one classify_arrays (EQTransformer, bench stream, batch 256) -> "
+              f"planes {list(planes)}; {card_planes[0]} counts {seen} = the launch counters; its top rows: "
+              + "; ".join(f"{r['name'][:60]} {r['total_ms']} ms x {r['count']}" for r in rows[:5])
+              + f"; device_memory_stats() peak {peak} bytes; StepTimer(device) over 5 classify_arrays on "
+              f"{card}: p50 {classify['p50_s'] * 1e3:.2f} ms, mean {classify['mean_s'] * 1e3:.2f} ms")
+        prof_out = dict(planes=list(planes), card_counts=seen, top=rows[:5], peak_bytes=peak, classify=classify)
+        del picker
+
+        # ---- picks_from_prob_numpy against K1 on phase 3's curves, thresholds (t, t / 2)
+        prob, t1, t2 = trig_inputs
+        k1 = [a.cpu().numpy() for a in cuda_trig.trigger_extract(prob, t1, t2, TRIG_K)]
+        rows_np, t1_np, t2_np = prob.cpu().numpy(), t1.cpu().numpy(), t2.cpu().numpy()
+        checked = n_picks = 0
+        for i in range(rows_np.shape[0]):
+            pk, val = picks_from_prob_numpy(rows_np[i], float(t1_np[i]), float(t2_np[i]))
+            if len(pk) >= TRIG_K:
+                continue
+            valid = k1[2][i].astype(bool)
+            if not (np.array_equal(k1[0][i][valid].astype(np.int64), pk)
+                    and np.array_equal(k1[1][i][valid].astype(np.float64), val)):
+                fail(f"oracle: K1's picks of row {i} are not picks_from_prob_numpy's")
+            checked += 1
+            n_picks += len(pk)
+        if checked < rows_np.shape[0] // 2:
+            fail(f"oracle: only {checked} rows of {rows_np.shape[0]} have fewer than {TRIG_K} picks")
+        print(f"oracle: K1 at ({rows_np.shape[0]}, {rows_np.shape[1]}), thresholds (t, t/2): its valid "
+              f"(peak_idx, peak_val) equal picks_from_prob_numpy's on all {checked} rows with fewer than "
+              f"{TRIG_K} runs ({n_picks} picks)")
+
+        # ---- prediction examples and the QC screen on synthetic traces
+        idx = np.r_[np.where(event)[0][:QC_EVENTS], np.where(~event)[0][:QC_NOISE]]
+        ds = synthetic_dataset(waves[idx], [meta[i] for i in idx])
+        cpu_model = load_model("eqtransformer", device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+        shown = [0, 1, QC_EVENTS, QC_EVENTS + 1]
+        p_all, s_all = _onset_arrays(ds.metadata)
+
+        def panel_curves(m_, d_):
+            """The curves each panel draws: read from the figures, or where
+            matplotlib is not installed from the arrays the panels would draw."""
+            if have_mpl:
+                return [{ln.get_label(): np.asarray(ln.get_ydata()) for ln in fig.axes[3].get_lines()
+                         if not ln.get_label().startswith("_")}
+                        for fig in plotting.plot_prediction_examples(m_, ds, shown, device=d_)]
+            return [plotting._prediction_arrays(m_, ds.get_sample(i)[0], p_all[i], s_all[i], torch.device(d_))[1]
+                    for i in shown]
+
+        zero_counts()
+        curves_card = panel_curves(model, dev)
+        launches["eqtransformer/prediction examples"] = got = read_counts()
+        curves_cpu = panel_curves(cpu_model, "cpu")
+        plot_err = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(curves_card, curves_cpu) for k in a)
+        want = dict.fromkeys(got, 0)
+        want["lstm_multi"] = 4 * len(shown)
+        if got != want or not plot_err <= PLOT_TOL:
+            fail(f"plot: launches {got} (want {want}); card curves {plot_err} from the CPU's (tol {PLOT_TOL})")
+        drawn = ("drawn by plot_prediction_examples" if have_mpl else
+                 "figures not drawn: matplotlib is not installed on this machine; _prediction_arrays' arrays held")
+        print(f"plot: prediction examples of {len(shown)} traces ({drawn}): curves on the card within "
+              f"{plot_err:.2e} of device='cpu' (tol {PLOT_TOL}); launches {got}")
+
+        # QC: each head's logit on these traces stretched so that its median sits
+        # at -5 and its 99.9th percentile at 0 (the rule of tests/torch_heads.py;
+        # 4c's stretch saturates every trace's largest probability at 1 here); the
+        # threshold in the widest gap between the traces' largest P/S probabilities
+        picker = WaveformPicker(model, device=dev)
+        window = model.in_samples
+        starts = torch.as_tensor(window_starts(waves.shape[-1], window, window // 2))
+        with inference_work(dev):
+            fr = frame_windows(torch.as_tensor(waves[idx], device=dev), starts, window)
+            heads = model(picker._condition(fr.reshape(-1, 3, window)))
+        with torch.no_grad():
+            for head, pr in zip([model.conv_d] + list(model.pick_convs), heads):
+                pr = pr.double().cpu().numpy()
+                mid_, top_ = np.percentile(np.log(pr / (1 - pr)), [50, 99.9])
+                a = 5.0 / float(top_ - mid_)
+                head.bias.copy_((head.bias - float(mid_)) * a - 5.0)
+                head.weight.mul_(a)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+        sos = butter(4, (1.0, 20.0), btype="bandpass", fs=SR, output="sos")
+        largest = np.zeros(len(idx))
+        for x in (waves[idx], sosfilt(sos, waves[idx], axis=-1)):
+            with inference_work(dev):
+                fr = frame_windows(torch.as_tensor(np.asarray(x, np.float32), device=dev), starts, window)
+                n, b = fr.shape[:2]
+                pr = picker._apply_model(picker._condition(fr.reshape(n * b, 3, window))).cpu().numpy()
+            ps = [i for i, lab in enumerate(picker._prob_channels()) if lab in ("P", "S")]
+            largest = np.maximum(largest, pr[:, ps].max(axis=(1, 2)).reshape(n, b).max(0))
+        srt = np.sort(largest)
+        k = int(np.argmax(np.diff(srt)))
+        thr = float((srt[k] + srt[k + 1]) / 2)
+        if not srt[k + 1] - srt[k] > QC_GAP:
+            fail(f"qc: the widest gap between the traces' largest probabilities is {srt[k + 1] - srt[k]}")
+        zero_counts()
+        flags = qc.screen_dataset_with_models(ds, [picker], threshold=thr, out_dir=os.path.join(tmp, "qc"),
+                                              plot_flagged=have_mpl)
+        launches["eqtransformer/qc"] = got = read_counts()
+        cpu_flags = qc.screen_dataset_with_models(ds, [WaveformPicker(cpu_model, device="cpu")], threshold=thr)
+        if not np.array_equal(flags, cpu_flags) or not 0 < flags.sum() < len(flags) or not got["lstm_multi"] > 0:
+            fail(f"qc: card flags {flags.astype(int)} against the CPU's {cpu_flags.astype(int)}; launches {got}")
+        n_png = len([f_ for f_ in os.listdir(os.path.join(tmp, "qc")) if f_.startswith("flagged_")])
+        print(f"qc: screen_dataset_with_models over {len(ds)} synthetic traces at threshold {thr:.4f} (the "
+              f"middle of a {srt[k + 1] - srt[k]:.4f} gap): {int(flags.sum())} flagged, equal to the CPU port's; "
+              f"plot_flagged={have_mpl}, {n_png} figures; launches {got}")
+        seconds = time.perf_counter() - t_phase
+        print(f"train and inspect: the phase took {seconds:.1f} s")
+        return dict(launches=launches, swa=swa_out, profiling=prof_out, oracle_rows=checked,
+                    oracle_picks=n_picks, plot_err=plot_err, matplotlib=have_mpl, qc_flagged=int(flags.sum()),
+                    qc_traces=len(ds), seconds=seconds)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> None:
@@ -1978,12 +2278,18 @@ def main() -> None:
     # ---- 8. evaluation at full width
     evaluation = eval_phase(dev, card, zero_counts, read_counts, waves, meta)
     by_path["eqtransformer/evaluate"] = evaluation["launches"]
-    del waves, meta
 
     # ---- 9. the file-to-picks path at full width, both precisions
     picking = pick_phase(dev, card, zero_counts, read_counts, data, t_start)
     by_path["eqtransformer/pick float32"] = picking["launches"]["float32"]
     by_path["eqtransformer/pick bfloat16"] = picking["launches"]["bfloat16"]
+
+    # ---- 10. train and inspect: SWA, the profiled classify, the pick oracle
+    # against K1, prediction examples and the QC screen
+    inspecting = inspect_phase(dev, card, zero_counts, read_counts, waves, meta, thresholds_of["eqtransformer"],
+                               by_path["eqtransformer"], (prob, t1, t2))
+    by_path.update(inspecting["launches"])
+    del waves, meta
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bnd, library_ms=None, **extra):
         return dict({"name": name, "route": "cuda", "source": f"volpick_tpu_torch/csrc/{source}",
@@ -2076,7 +2382,8 @@ def main() -> None:
         "route_max_abs_curve_diff": route_errs,
         "training": {k: v for k, v in training.items() if k != "launches"},
         "evaluation": {k: v for k, v in evaluation.items() if k not in ("launches", "k1_bound")},
-        "bf16_paths": bf16_of, "pick": {k: v for k, v in picking.items() if k != "launches"}}))
+        "bf16_paths": bf16_of, "pick": {k: v for k, v in picking.items() if k != "launches"},
+        "inspect": {k: v for k, v in inspecting.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -987,3 +987,81 @@ def test_native_readers_build_under_the_ports_build_directory(dev, tmp_path):
     assert path.exists() and path.parent == _build.BUILD_DIR
     assert path.parent.name == "volpick_tpu_torch" and path.parent.parent.name == "build"
     assert not any(p.name == "volpick_tpu" for p in path.parents)
+
+
+class _Batches:
+    def __init__(self, batches):
+        self.batches = batches
+
+    def epoch(self):
+        return iter(self.batches)
+
+
+def test_swa_fit_on_the_card_matches_the_cpu_port(dev, tmp_path):
+    """A 2-epoch SWA fit (swa_epoch_start 0: both epochs collect; swa_lrs
+    5e-4) of a small EQTransformer without dropout on the card and on the
+    CPU from the same parameters and batches, in float64: swa_n 2 and
+    swa_params within 1e-9 of the CPU's. The same fit in float32 with a
+    validation batch launches K2 twice a validation forward (one BiLSTM
+    block, the pick LSTMs) and nothing in a train step."""
+    import copy
+
+    swa = {"swa_lrs": 5e-4, "swa_epoch_start": 0}
+    cpu = load_model("eqtransformer", seed=4, in_samples=1504, lstm_blocks=1, drop_rate=0.0,
+                     device="cpu").double()
+    gpu = copy.deepcopy(cpu).to(dev)
+    trainers = {}
+    for key, model, where in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        t = Trainer(model, swa=swa, warmup_steps=0, device=where)
+        batches = [_train_batch(6, 1504, torch.float64, where)] * 2
+        t.fit(_Batches(batches), None, max_epochs=2, save_dir=str(tmp_path / key), tensorboard=False)
+        trainers[key] = t
+    tc, tg = trainers["cpu"], trainers["card"]
+    assert tc.swa_n == tg.swa_n == 2
+    for name, v in tc.swa_params.items():
+        assert (tg.swa_params[name].cpu() - v).abs().max().item() <= 1e-9, name
+
+    model = load_model("eqtransformer", seed=4, in_samples=1504, lstm_blocks=1, device=dev)
+    t = Trainer(model, swa=swa, warmup_steps=0, device=dev)
+    batch = _train_batch(6, 1504, torch.float32, dev)
+    before = cuda_lstm.launches
+    t.fit(_Batches([batch]), _Batches([batch]), max_epochs=2, save_dir=str(tmp_path / "f32"), tensorboard=False)
+    torch.cuda.synchronize()
+    # two validation forwards, each with K2 once for its BiLSTM block and once for the pick LSTMs
+    assert cuda_lstm.launches - before == 2 * 2 and t.swa_n == 2
+
+
+def test_prediction_examples_on_the_card_match_the_cpu(dev):
+    """plot_prediction_examples' curves for a full-width seeded EQTransformer
+    on the card, within 2e-4 of the same call with device="cpu" (the EQT
+    forward pin), K2 4 times a trace. Gated on the matplotlib probe: where
+    ``importlib.util.find_spec("matplotlib")`` finds none (the H100 machine
+    has none), the arrays the panels would draw (``_prediction_arrays``)
+    are held instead of the figures."""
+    from volpick_tpu_torch.data.synthetic import synthetic_arrays, synthetic_dataset
+    from volpick_tpu_torch.pipeline.generator import _onset_arrays
+    from volpick_tpu_torch.utils import plotting
+
+    ds = synthetic_dataset(*synthetic_arrays(n_events=2, n_noise=1, n_samples=9000, seed=1))
+    model = load_model("eqtransformer", seed=0, device=dev)
+    cpu_model = load_model("eqtransformer", device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    shown = [0, 1, 2]
+    p_all, s_all = _onset_arrays(ds.metadata)
+
+    def curves(m, d):
+        if importlib.util.find_spec("matplotlib") is not None:
+            return [{ln.get_label(): np.asarray(ln.get_ydata()) for ln in fig.axes[3].get_lines()
+                     if not ln.get_label().startswith("_")}
+                    for fig in plotting.plot_prediction_examples(m, ds, shown, device=d)]
+        return [plotting._prediction_arrays(m, ds.get_sample(i)[0], p_all[i], s_all[i], torch.device(d))[1]
+                for i in shown]
+
+    before = cuda_lstm.launches
+    got = curves(model, dev)
+    assert cuda_lstm.launches - before == 4 * len(shown)
+    want = curves(cpu_model, "cpu")
+    for g, w in zip(got, want):
+        assert list(g) == list(w) == ["Detection", "P", "S"]
+        for k in g:
+            assert g[k].shape == (model.in_samples,) and np.abs(g[k] - w[k]).max() <= 2e-4, k

@@ -7,7 +7,8 @@
   widest gaps between the traces' largest P/S probabilities, each more than
   2e-3 wide (the PhaseNet forward pin is 2e-5), so no trace can fall on the
   other side in one package only.
-  ``screen_dataset_with_models`` gives the same flags and the same CSV.
+  ``screen_dataset_with_models`` gives the same flags and the same CSV
+  (``plot_flagged``: ``test_torch_plotting.py``).
 - ``classical.py`` (a numpy copy): the Baer-Kradolfer and AR-AIC pickers,
   ``gp_maximize`` and ``tune_picker`` return exactly what JAX's return on
   the same traces and seeds.
@@ -97,9 +98,6 @@ def test_screen_dataset_matches_jax(pickers_and_traces, tmp_path):
     np.testing.assert_array_equal(got, want)
     assert 0 < got.sum() < len(got)
     assert (tmp_path / "p" / "qc_flags.csv").read_bytes() == (tmp_path / "j" / "qc_flags.csv").read_bytes()
-    with pytest.raises(NotImplementedError):
-        pqc.screen_dataset_with_models(ds, [port], threshold=thr, out_dir=tmp_path / "q",
-                                       plot_flagged=True)
 
 
 def test_classical_pickers_match_jax():

@@ -6,7 +6,7 @@
 - a few-step trajectory: the same batches through both trainers (PhaseNet
   with EMA, its BatchNorm statistics merged each step, float64) give losses
   within 1e-6 relative over 3 steps, parameters and EMA within 1e-7;
-- the SWA config and a missing CUDA device raise.
+- a missing CUDA device raises; the SWA config trains through the CLI.
 """
 
 import copy
@@ -137,18 +137,41 @@ def test_three_steps_follow_the_jax_trainer():
         assert (ema.state_dict()[name].double() - v).abs().max().item() <= 1e-7 or "num_batches" in name, name
 
 
-def test_swa_config_and_missing_cuda_raise(monkeypatch):
-    config = json.loads((REPO / "examples/configs/eqtransformer_swa.json").read_text())
-    assert config["swa"]
-    with pytest.raises(ValueError, match="SWA.*later slice"):
-        ttrainer.train(config, device="cpu")
-    with pytest.raises(ValueError, match="SWA.*later slice"):
-        ttrainer.Trainer(PhaseNet(), swa=config["swa"], device="cpu")
+def test_missing_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ttrainer.Trainer(PhaseNet())
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ttrainer.train({"model": "PhaseNet", "data": "nowhere"})
+
+
+def test_swa_config_trains(tmp_path):
+    """examples/configs/eqtransformer_swa.json trains through
+    ``python -m volpick_tpu_torch train`` on the CPU, cut to test size (a
+    synthetic dataset, batch 8, 2 epochs, 1504 samples, one BiLSTM block):
+    swa_epoch_start 0.75 of 2 epochs collects at the end of epoch 1 only,
+    so the last checkpoint holds swa_n 1 and averages equal to its
+    parameters."""
+    from volpick_tpu_torch import __main__ as cli
+    from volpick_tpu_torch.data.synthetic import make_synthetic_dataset
+    from volpick_tpu_torch.train.checkpoints import load_checkpoint
+
+    config = json.loads((REPO / "examples/configs/eqtransformer_swa.json").read_text())
+    assert config["swa"] == {"swa_lrs": 5e-05, "swa_epoch_start": 0.75}
+    make_synthetic_dataset(tmp_path / "ds", n_events=16, n_noise=4, n_samples=3600, seed=5)
+    config.update(data=str(tmp_path / "ds"), batch_size=8, trainer_args={"max_epochs": 2}, warmup_steps=2,
+                  save_dir=str(tmp_path / "weights"))
+    config["model_args"].update(SMALL)
+    path = tmp_path / "eqtransformer_swa.json"
+    path.write_text(json.dumps(config))
+    out = cli.main(["train", "--config", str(path), "--device", "cpu"])
+    assert [h["epoch"] for h in out["history"]] == [0, 1]
+    assert all(math.isfinite(h["train_loss"]) for h in out["history"])
+    raw = load_checkpoint(tmp_path / "weights" / "eqtransformer_swa" / "checkpoints" / "last.ckpt")
+    assert raw["swa_n"] == 1 and raw["epoch"] == 1
+    assert set(raw["swa_params"]) == set(raw["params"])
+    for k, v in raw["params"].items():
+        assert torch.equal(raw["swa_params"][k], v), k
 
 
 def test_make_augment_config_matches_jax():

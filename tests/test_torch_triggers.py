@@ -6,6 +6,9 @@ what ``extract_triggers_batched`` runs on a CPU tensor) is held against
 against the Pallas kernel ``trigger_extract_pallas`` in interpret mode, and
 against the numpy oracle. Tolerance: none; all five outputs must be equal.
 
+The port's host oracle ``picks_from_prob_numpy`` returns exactly JAX's on
+the rows built around piece boundaries and on the edge rows.
+
 ``trigger_extract_pieces`` (the kernel's way of counting: a row in pieces, per
 piece a summary, the emissions that are sure and one pending bit, slots from
 the resolved counts) is held to the twin and to the JAX package for every
@@ -24,6 +27,7 @@ from volpick_tpu.ops.triggers import extract_triggers_batched as jax_extract
 from volpick_tpu.ops.triggers import picks_from_prob_numpy, trigger_onset_numpy
 from volpick_tpu_torch.ops.cuda import triggers as cuda_triggers
 from volpick_tpu_torch.ops.triggers import extract_triggers_batched
+from volpick_tpu_torch.ops.triggers import picks_from_prob_numpy as port_picks_from_prob
 
 
 def edge_curves(rng, w, k):
@@ -255,3 +259,21 @@ def test_wrapper_rejects_bad_input():
         cuda_triggers.trigger_extract(prob, torch.ones(2), torch.ones(3), 4)
     with pytest.raises(ValueError):
         cuda_triggers.trigger_extract(prob, torch.ones(3), torch.ones(3), 0)
+
+
+@pytest.mark.parametrize("name", TRAPS)
+@pytest.mark.parametrize("piece", [7, 128])
+def test_picks_from_prob_numpy_equals_jax_on_trap_rows(piece, name):
+    row, _ = trap_row(name, piece)
+    rows = [row] + list(edge_curves(np.random.default_rng(piece), row.size, 4))
+    for r in rows:
+        for thres, thres2 in ((0.5, None), (0.5, 0.25), (0.35, 0.3), (0.95, None)):
+            got, want = port_picks_from_prob(r, thres, thres2), picks_from_prob_numpy(r, thres, thres2)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                np.testing.assert_array_equal(g, w)
+    n = len(port_picks_from_prob(row, 0.5)[0])
+    assert n == {"pending_true": 2, "pending_false": 1, "spans_three_pieces": 2, "ends_at_piece_last_sample": 2,
+                 "touches_row_end": 1, "k_cut_inside_piece": 4, "k_cut_at_piece_boundary": 3,
+                 "exactly_k_picks": 3, "dense_alternating": (row.size + 1) // 2, "never_triggers": 0,
+                 "one_run_never_crossing": 0}[name]

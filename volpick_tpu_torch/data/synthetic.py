@@ -34,6 +34,7 @@ from typing import List, Tuple, Union
 
 import numpy as np
 
+from volpick_tpu_torch.data.assemble import generate_chunk_file
 from volpick_tpu_torch.data.writer import WaveformDataWriter
 
 
@@ -168,18 +169,6 @@ def make_synthetic_dataset(
             writer.add_trace(md, data)
     generate_chunk_file(dest_dir)
     return dest_dir
-
-
-def generate_chunk_file(dataset_dir: Union[str, Path]) -> List[str]:
-    """(Re)create the `chunks` index from the metadata files present (a copy of
-    ``volpick_tpu/data/assemble.py::generate_chunk_file``)."""
-    dataset_dir = Path(dataset_dir)
-    chunks = sorted(
-        p.name[len("metadata") : -len(".csv")] for p in dataset_dir.glob("metadata*.csv")
-    )
-    with open(dataset_dir / "chunks", "w") as f:
-        f.write("\n".join(chunks) + ("\n" if chunks else ""))
-    return chunks
 
 
 # --------------------------------------------------------------------------

@@ -23,7 +23,7 @@ the same in both):
   package's method of that name to), on any device.
 
 All give the same picks. ``trigger_onset_numpy`` is the host oracle of the
-trigger rule, numpy only.
+trigger rule and ``picks_from_prob_numpy`` that of the picks, numpy only.
 """
 
 from __future__ import annotations
@@ -70,6 +70,28 @@ def trigger_onset_numpy(prob: np.ndarray, thres1: float, thres2: float) -> List[
         if len(idx):
             triggers.append((int(s) + int(idx[0]), int(e)))
     return triggers
+
+
+def picks_from_prob_numpy(
+    prob: np.ndarray, thres: float, thres2: Optional[float] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pick samples + peak values from a probability curve (host oracle).
+
+    Matches reference `eval_taks0.get_picks_from_prob` (`eval_taks0.py:46-56`):
+    trigger_onset(prob, thres, thres/2); pick = on + argmax(prob[on:off]).
+    """
+    if thres2 is None:
+        thres2 = thres / 2.0
+    triggers = trigger_onset_numpy(prob, thres, thres2)
+    picks, values = [], []
+    for on, off in triggers:
+        # the reference searches prob[s0 : s1 + 1] — inclusive of the
+        # (obspy-inclusive) off index (`eval_taks0.py:46-56`)
+        seg = prob[on : off + 1]
+        k = int(np.argmax(seg))
+        picks.append(on + k)
+        values.append(float(prob[on + k]))
+    return np.asarray(picks, dtype=np.int64), np.asarray(values, dtype=np.float64)
 
 
 def default_trigger_method() -> str:

@@ -7,8 +7,9 @@ The same on-disk contract as the JAX package (reference
 `metrics.csv`, `hparams.json`, `checkpoints/last.ckpt` and the best
 `checkpoints/epoch=E-step=S.ckpt` (save_top_k=1, held across resumes), each
 with an `-EMA` pair when EMA is on, and the NaN guard. A checkpoint is a
-``torch.save`` of {params (a state dict), ema_params, opt_state, step, epoch,
-plateau, best_monitor}, tensors on the CPU.
+``torch.save`` of {params (a state dict), ema_params, swa_params, swa_n,
+opt_state, step, epoch, plateau, best_monitor}, tensors on the CPU (``None``
+where EMA or SWA is off).
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ reference `volpick/model/train.py:67-78`):
   "data": <dataset path>, "batch_size": 512,
   "trainer_args": {"max_epochs": 400, "check_val_every_n_epoch": 1},
   "stack_data": true, "ema": true, "early_stop": true,
+  "swa": {"swa_lrs": ..., "swa_epoch_start": ...},
   "restrict_to_phase": "P"|"S"|null, "training_fraction": 1.0,
   "whole_dataset": false, "resume": false, "warmup_steps": 500,
   "save_dir": "weights"
@@ -21,15 +22,20 @@ statistics updated by the forward; dropout from the trainer's generator),
 the loss, autograd, then Adam as ``optax.scale_by_adam()`` computes it
 (b1 0.9, b2 0.999, eps 1e-8, bias-corrected) and p ← p − lr·u, with lr =
 base × 500-step linear warm-up × ReduceLROnPlateau scale set each step, then
-the EMA update. Validation runs the eval-mode forward under
-``torch.no_grad()``, on the EMA weights when EMA is on (the reference swaps
-them in around validation). The train step launches none of the CUDA
-kernels (the EQT family's train forward is the per-branch program,
-TPUPickNet's takes "xla"); validation takes the model's eval route, on the
-EQT family the LSTM kernel.
+the EMA update. With SWA (PyTorch Lightning's StochasticWeightAveraging
+semantics, as the JAX trainer reads them) every batch from the start epoch
+on takes the lr ``swa_lrs`` instead, and at each of those epochs' ends,
+before validation, the state dict goes into a running mean (``swa_params``,
+``swa_n``; checkpointed and restored). As in the JAX package, the averages
+are only collected: nothing swaps them into the model. Validation runs the
+eval-mode forward under ``torch.no_grad()``, on the EMA weights when EMA is
+on (the reference swaps them in around validation). The train step
+launches none of the CUDA kernels (the EQT family's train forward is the
+per-branch program, TPUPickNet's takes "xla"); validation takes the model's
+eval route, on the EQT family the LSTM kernel.
 
 Not ported: the JAX trainer's ``Mesh`` (one device here; DDP waits for a
-later slice) and SWA, which ``Trainer`` refuses.
+later slice).
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from volpick_tpu_torch.models.eqtransformer import EQTransformer, VolEQTransform
 from volpick_tpu_torch.pipeline.augmentations import AugmentConfig
 from volpick_tpu_torch.pipeline.generator import TrainGenerator
 from volpick_tpu_torch.train.checkpoints import CheckpointManager, CSVMetricsLogger, load_checkpoint
-from volpick_tpu_torch.train.ema import ema_state_of, ema_update
+from volpick_tpu_torch.train.ema import ema_state_of, ema_update, swa_update
 from volpick_tpu_torch.train.losses import vector_cross_entropy, vol_eqt_loss, weighted_bce
 from volpick_tpu_torch.train.schedules import EarlyStopper, PlateauScheduler, warmup_scale
 from volpick_tpu_torch.utils.tensorboard import TensorBoardLogger
@@ -60,13 +66,6 @@ from volpick_tpu_torch.utils.tensorboard import TensorBoardLogger
 logger = logging.getLogger("volpick_tpu_torch")
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-SWA_REFUSED = (
-    "SWA is not supported by volpick_tpu_torch: the JAX trainer's SWA branch collects "
-    "averaged weights that are never swapped into a usable model (no BatchNorm pass, "
-    "never exported); SWA waits for a later slice of the port. Remove the \"swa\" "
-    "entry (EMA is supported)."
-)
 
 
 def make_augment_config(model, model_args: Dict, stack: bool) -> AugmentConfig:
@@ -125,14 +124,13 @@ class Trainer:
         seed: int = 42,
         device=None,
     ):
-        if swa:
-            raise ValueError(SWA_REFUSED)
         self.device = resolve_device(device, "Trainer")
         self.model = model.to(self.device)
         self.lr = lr
         self.loss_weights = tuple(loss_weights)
         self.ema = ema
         self.ema_decay = ema_decay
+        self.swa = swa or None
         self.warmup_steps = warmup_steps
         self.monitor = monitor
         self.seed = seed
@@ -157,6 +155,8 @@ class Trainer:
             "nu": {k: torch.zeros_like(p) for k, p in params.items()},
         }
         self.ema_params = ema_state_of(self.model) if ema else None
+        self.swa_params = None
+        self.swa_n = 0
         self.step = 0
         self.start_epoch = 0
         # best monitored value carried across restarts, so a resumed run
@@ -166,7 +166,7 @@ class Trainer:
 
     # ------------------------------------------------------------- resume
     def restore(self, checkpoint_path) -> "Trainer":
-        """Resume training state (parameters, BatchNorm statistics, EMA,
+        """Resume training state (parameters, BatchNorm statistics, EMA, SWA,
         optimiser moments, step, epoch, plateau) from a checkpoint written by
         this trainer."""
         raw = load_checkpoint(checkpoint_path)
@@ -180,7 +180,10 @@ class Trainer:
             }
         if raw.get("ema_params") is not None:
             self.ema_params = {k: v.to(self.device) for k, v in raw["ema_params"].items()}
+        if raw.get("swa_params") is not None:
+            self.swa_params = {k: v.to(self.device) for k, v in raw["swa_params"].items()}
         self.step = int(raw.get("step", 0))
+        self.swa_n = int(raw.get("swa_n", 0) or 0)
         # continue epoch numbering where the interrupted run stopped, like
         # Lightning's `fit(ckpt_path=...)` (reference `train.py:214-222`)
         if raw.get("epoch") is not None:
@@ -305,17 +308,40 @@ class Trainer:
         plateau_scale = self.plateau.lr if self.plateau is not None else 1.0
         t_start = time.perf_counter()
         history = []
+        # PL StochasticWeightAveraging semantics: swa_epoch_start is an epoch
+        # index or a fraction of max_epochs; swa_lrs may be a list
+        if self.swa:
+            raw = self.swa.get("swa_epoch_start", 0.8)
+            swa_start_epoch = int(raw) if raw >= 1 else int(float(raw) * max_epochs)
+            swa_lr_cfg = self.swa.get("swa_lrs")
+            if isinstance(swa_lr_cfg, (list, tuple)):
+                swa_lr_cfg = swa_lr_cfg[0]
+        else:
+            swa_start_epoch = None
+            swa_lr_cfg = None
+
         for epoch in range(self.start_epoch, max_epochs):
             # --- train
             losses = []
             for batch in train_gen.epoch():
                 lr = self.lr * warmup_scale(self.step, self.warmup_steps) * plateau_scale
+                if self.swa and epoch >= swa_start_epoch and swa_lr_cfg is not None:
+                    lr = float(swa_lr_cfg)
                 loss = self.train_step(batch, lr, dropout_gen)
                 self.step += 1
                 losses.append(loss)  # device scalar; synchronised once an epoch
                 if checkpoint_every_n_steps and self.step % checkpoint_every_n_steps == 0:
                     ckpt.update(self._state(epoch), {monitor: float(loss)}, epoch, self.step)
             train_loss = float(np.mean(torch.stack(losses).cpu().numpy())) if losses else math.nan
+
+            # --- SWA collection at epoch end
+            if self.swa and epoch >= swa_start_epoch:
+                if self.swa_params is None:
+                    self.swa_params = ema_state_of(self.model)
+                    self.swa_n = 1
+                else:
+                    swa_update(self.swa_params, self.model.state_dict(), self.swa_n)
+                    self.swa_n += 1
 
             # --- validation (Lightning `check_val_every_n_epoch`: every Nth
             # epoch and always the last; skipped epochs log val_loss=nan, which
@@ -332,6 +358,7 @@ class Trainer:
                 "step": self.step,
                 "train_loss": train_loss,
                 "val_loss": val_loss,
+                # warm-up x plateau, as the JAX trainer logs it in SWA epochs too
                 "lr": self.lr * warmup_scale(self.step, self.warmup_steps) * plateau_scale,
                 "time_s": time.perf_counter() - t_start,
             }
@@ -365,6 +392,8 @@ class Trainer:
         state = {
             "params": self.model.state_dict(),
             "ema_params": self.ema_params,
+            "swa_params": self.swa_params,
+            "swa_n": self.swa_n,
             "opt_state": self.opt_state,
             "step": self.step,
             "epoch": epoch,
@@ -496,8 +525,6 @@ def prepare_data(config: Dict, model, test_run: bool = False, cfg: Optional[Augm
 def train(config: Dict, experiment_name: str = "exp", test_run: bool = False, device=None) -> Dict:
     """The `train.py --config` entry point (reference `train.py:63-222`) on
     `device`: the card unless ``device="cpu"``."""
-    if config.get("swa"):
-        raise ValueError(SWA_REFUSED)
     device = resolve_device(device, "train")
     model_args = dict(config.get("model_args", {}))
     model_name = config["model"].lower()
@@ -517,6 +544,7 @@ def train(config: Dict, experiment_name: str = "exp", test_run: bool = False, de
         lr=float(model_args.get("lr", 0.01)),
         loss_weights=tuple(model_args.get("loss_weights", (0.05, 0.40, 0.55))),
         ema=bool(config.get("ema", False)),
+        swa=config.get("swa") or None,
         warmup_steps=int(config.get("warmup_steps", 500)),
         lr_scheduler=model_args.get("lr_scheduler", "ReduceLROnPlateau"),
         lr_scheduler_args=model_args.get("lr_scheduler_args"),

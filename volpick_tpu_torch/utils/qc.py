@@ -3,13 +3,14 @@
 The reference's visual-QC pass runs pretrained PhaseNet + EQTransformer over
 candidate (usually noise) traces — on the raw (>0.3 Hz) and 1-20 Hz-filtered
 waveform — and flags traces where any model probability exceeds a threshold
-(likely hidden events). Here the screen runs as batched device inference.
+(likely hidden events). Here the screen runs as batched device inference;
+flagged traces can optionally be rendered with plot_waveform for human review.
 
 Port of ``volpick_tpu/utils/qc.py``: the pickers are the port's
 ``WaveformPicker``s, each running its forward (``_condition`` then
 ``_apply_model``) on framed windows on its own device; the band filter is
-scipy's ``sosfilt`` on the host, as in JAX. Plotting the flagged traces waits
-for the port of ``utils/plotting.py``.
+scipy's ``sosfilt`` on the host, as in JAX; the flagged traces are drawn by
+the port's ``utils/plotting.py::plot_waveform``.
 """
 
 from __future__ import annotations
@@ -82,9 +83,10 @@ def screen_dataset_with_models(
     max_plots: int = 50,
 ) -> np.ndarray:
     """Run check_waveforms over a whole dataset and, with `out_dir`, write
-    the metadata with a ``qc_flagged`` column to ``qc_flags.csv``. Returns
-    the flag array (aligned to metadata). ``plot_flagged`` raises: the port
-    has no plotting module yet."""
+    the metadata with a ``qc_flagged`` column to ``qc_flags.csv`` and, with
+    ``plot_flagged``, the first `max_plots` flagged traces to
+    ``flagged_<i>.png`` for manual review. Returns the flag array (aligned
+    to metadata)."""
     n = len(dataset)
     flags = np.zeros(n, dtype=bool)
     batch = 64
@@ -106,7 +108,14 @@ def screen_dataset_with_models(
         md["qc_flagged"] = flags
         md.to_csv(out_dir / "qc_flags.csv", index=False)
         if plot_flagged:
-            raise NotImplementedError(
-                "plot_flagged needs utils/plotting.py, which the port does not have yet"
-            )
+            from volpick_tpu_torch.utils.plotting import plot_waveform
+
+            for i in np.where(flags)[0][:max_plots]:
+                data, m = dataset.get_sample(int(i))
+                plot_waveform(
+                    data,
+                    dataset.sampling_rate or 100.0,
+                    title=str(m.get("trace_name", i)),
+                    save_path=out_dir / f"flagged_{i}.png",
+                )
     return flags
