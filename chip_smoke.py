@@ -192,6 +192,24 @@
    the card's flags equal the CPU port's (plot_flagged where matplotlib is
    installed). Prints the phase's seconds.
 
+11. an archive to picks on the port's acquisition/ modules: the bench
+   stream in integer counts (ARCHIVE_SCALE a unit); a JMA deck with the
+   stream's onsets at stations 0-3 read by read_jma_catalog into the
+   catalog's table; stations 0-3 as one Hi-net event (write_win32 and a
+   channel table, zipped) served through HinetSession.get_event_waveform
+   over a fake wire and converted by convert_win32_event_dirs on the table;
+   stations 4-7 as two SAC event folders under a directory named *_sac_*
+   (one folder with upper-case .SAC names and .PICK sidecars) converted by
+   convert_sac_to_mseed in two spawn workers. Fails unless every converted
+   miniSEED file reads back (stream_to_array) as the quantised array from
+   the sidecar's start time, read_sac_with_sidecar finds each sidecar, and
+   main(["pick", *8 files, ...]) on phase 9's model launches K1 once and K2
+   4 times a forward and writes exactly the rows of classify() on the
+   in-memory arrays (1832 windows). Where h5py is installed (not on the
+   card machine), convert_catalog_to_dataset, extract_noise_from_dataset
+   and convert_from_old_format also run on the files. Prints the host-clock
+   seconds of each step, the MB written and the pick count.
+
 Exits non-zero on any failure and without a CUDA device. The last two lines
 are a JSON summary of the kernels and {"ok": true, "device": {...}}.
 """
@@ -239,6 +257,11 @@ EVAL_CPU_WINDOWS, EVAL_PICK_SHARE = 32, 0.1
 SWA_CONFIG = "examples/configs/eqtransformer_swa.json"
 SWA_START, SWA_EPOCHS, SWA_BATCH, SWA_TOL = 0.5, 4, 256, 1e-6
 PLOT_TOL, QC_EVENTS, QC_NOISE, QC_GAP = 2e-4, 16, 8, 2e-3
+# phase 11: the bench stream in integer counts (|counts| < 2^24: exact as the
+# float32 samples of SAC and miniSEED, and inside WIN32's int32); the WIN32
+# trim's margins before the first pick and after the last reach past the
+# 20 minutes
+ARCHIVE_SCALE, CUT_PRE_S, CUT_POST_S = 1e4, 400.0, 1200.0
 GOLDEN_METRICS = ["prob_thre", "tp_thre"] + [  # the reference's {set}_metrics.csv (`eval_taks0.py:722-783`)
     f"{ph}_{c}" for ph in ("p", "s") for c in (
         "TP", "FP", "FN", "precision", "recall", "F1score", "mean", "median", "std", "MAE", "MAD", "out",
@@ -1059,7 +1082,7 @@ def pick_phase(dev, card, zero_counts, read_counts, data, t_start) -> dict:
                     picks={p_: len(r) - 1 for p_, r in rows_of.items()}, forwards=forwards[0],
                     cli_s=pick_s, seeded_curve_err=seed_err, stretched_curve_err=curve_err,
                     head_gains=gains, strongest_p_agree=len(agree), strongest_p_stations=len(ids),
-                    timing=timing)
+                    timing=timing, model=model, thresholds=thr)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         if saved_models is None:
@@ -1337,6 +1360,370 @@ def inspect_phase(dev, card, zero_counts, read_counts, waves, meta, eqt_threshol
                     qc_traces=len(ds), seconds=seconds)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _jma_hypo_line(t: "UTC", lat=34.5, lon=139.2, dep_km=8.5, mag=2.3, etype="5") -> str:
+    """A JMA deck hypocenter record (the line builder of tests/test_jma.py,
+    copied: an installed `tests` package shadows the repo's on the card
+    machine)."""
+    d = t.datetime
+    sec = d.second + d.microsecond / 1e6
+    s = "J" + f"{d.year:04d}{d.month:02d}{d.day:02d}{d.hour:02d}{d.minute:02d}{int(sec):02d}"
+    s += f"{int(round(sec % 1 * 100)):02d}"
+    s = s.ljust(21)[:21]
+    s += f"{int(lat):3d}{int(round((lat - int(lat)) * 60 * 100)):4d}"
+    s = s.ljust(32)[:32]
+    s += f"{int(lon):4d}{int(round((lon - int(lon)) * 60 * 100)):4d}"
+    s = s.ljust(44)[:44]
+    s += f"{int(round(dep_km * 100)):5d}"
+    s = s.ljust(52)[:52]
+    s += f"{int(round(mag * 10)):2d}V"
+    s = s.ljust(60)[:60] + etype
+    return s.ljust(96)[:96]
+
+
+def _jma_arrival_line(sta: str, p: "UTC", s_: "UTC") -> str:
+    """A JMA deck arrival record with a P and an S time in the same hour
+    (the line builder of tests/test_jma.py, copied)."""
+    dp, ds = p.datetime, s_.datetime
+    psec, ssec = dp.second + dp.microsecond / 1e6, ds.second + ds.microsecond / 1e6
+    s = ("_" + sta.ljust(6)[:6]).ljust(13)[:13]
+    s += f"{dp.day:2d}" + "IP".ljust(4)
+    s += f"{dp.hour:02d}{dp.minute:02d}{int(psec):02d}{int(round(psec % 1 * 100)):02d}"
+    s += "ES".ljust(4)
+    s += f"{ds.minute:02d}{int(ssec):02d}{int(round(ssec % 1 * 100)):02d}"
+    s = s.ljust(87)[:87] + f"{dp.year % 100:02d}{dp.month:02d}" + "18"
+    return s.ljust(96)[:96]
+
+
+def archive_phase(dev, card, zero_counts, read_counts, data, t_start, model, thresholds) -> dict:
+    """Phase 11: an archive to picks on the port alone. The bench stream,
+    quantised to integer counts, is written as a Hi-net event (stations
+    0-3: a WIN32 archive and its channel table, zipped, served through
+    HinetSession over a fake wire) and as two SAC event folders (stations
+    4-7, one with upper-case names and .PICK sidecars, under a directory
+    named *_sac_*); a JMA deck lists the stream's onsets at stations 0-3.
+    The WIN32 archive goes to miniSEED through convert_win32_event_dirs on
+    the catalog's table, the SAC folders through convert_sac_to_mseed in two
+    spawn workers; every converted file must read back as the quantised
+    array, from the sidecar's start time; `python -m volpick_tpu_torch pick`
+    on the 8 files (phase 9's model) must launch K1 once and K2 4 times a
+    forward and write exactly classify()'s rows on the in-memory arrays.
+    Where h5py is installed, the three dataset writers also run."""
+    import csv
+    import io
+    import shutil
+    import tempfile
+    import zipfile
+    from datetime import datetime
+    from pathlib import Path
+
+    import pandas as pd
+
+    from volpick_tpu_torch import __main__ as cli
+    from volpick_tpu_torch.acquisition import convert as acq_convert
+    from volpick_tpu_torch.acquisition.hinet import convert_win32_event_dirs
+    from volpick_tpu_torch.acquisition.hinet_net import HinetEvent, HinetSession
+    from volpick_tpu_torch.acquisition.jma import read_jma_catalog
+    from volpick_tpu_torch.acquisition.sac_convert import (
+        convert_sac_to_mseed, read_sac_with_sidecar, read_sidecar_info)
+    from volpick_tpu_torch.core.sacio import write_sac
+    from volpick_tpu_torch.io import read_mseed
+    from volpick_tpu_torch.io.win32 import write_win32
+    from volpick_tpu_torch.models.eqtransformer import EQTransformer
+    from volpick_tpu_torch.ops.windows import window_starts
+    from volpick_tpu_torch.picker import UTC, Stream, Trace, WaveformPicker
+    from volpick_tpu_torch.picker.stage_times import SR
+    from volpick_tpu_torch.train.model_io import export_pretrained
+
+    stations, _, n = data.shape
+    hinet_st, sac_st = range(stations // 2), range(stations // 2, stations)
+    overlap, blinding, batch = 5500, (500, 500), 256
+    counts = np.round(data.astype(np.float64) * ARCHIVE_SCALE)
+    if not np.abs(counts).max() < 2 ** 24:  # exact in float32 (SAC, miniSEED), inside WIN32's int32
+        fail(f"archive: counts up to {np.abs(counts).max()} at scale {ARCHIVE_SCALE}")
+    counts32 = counts.astype(np.float32)
+    sta = [f"S{s_:02d}" for s_ in range(stations)]
+    # where each station's traces come from: (network, channel of component ci)
+    ident = {s_: ("N", "ZNE") if s_ in hinet_st else ("HV", ("HHZ", "HHN", "HHE")) for s_ in range(stations)}
+    # (P, S) of stations 0-3 in each of stage_times.bench_stream_array's two events
+    onsets = [[(t_start + first + step * s_, t_start + first + step * s_ + 4.0) for s_ in hinet_st]
+              for first, step in ((100.0, 97), (380.0, 41))]
+    tmp = tempfile.mkdtemp(prefix="volpick_archive_")
+    saved_models = os.environ.get("VOLPICK_TPU_MODELS")
+    step_s = {}
+    try:
+        root = Path(tmp)
+        # ---- catalog: a JMA deck with the onsets at stations 0-3
+        t0 = time.perf_counter()
+        deck = root / "jma_deck.txt"
+        with open(deck, "w") as f:
+            for e, picks in enumerate(onsets):
+                f.write(_jma_hypo_line(picks[0][0] - 5.0) + "\n")
+                for s_, (p_t, s_t) in zip(hinet_st, picks):
+                    f.write(_jma_arrival_line(sta[s_], p_t, s_t) + "\n")
+                f.write("E\n")
+        cat, skipped = read_jma_catalog(deck)
+        got_picks = [[(p_.station, p_.phase, p_.time.timestamp) for p_ in ev.picks] for ev in cat.events]
+        want_picks = [[(sta[s_], ph, t.timestamp) for s_, pair in zip(hinet_st, picks) for ph, t in zip("PS", pair)]
+                      for picks in onsets]
+        if skipped or got_picks != want_picks:
+            fail(f"archive: the JMA deck read back as {got_picks} (skipped {skipped}), want {want_picks}")
+        # JMA arrival records carry no weights, and the per-station table
+        # averages by weight: the station rows take their times from the
+        # per-pick table
+        per_pick = cat.to_dataframe(by_station=False)
+        table = cat.to_dataframe().drop(columns=["trace_p_arrival_time", "trace_s_arrival_time"]).merge(
+            per_pick.groupby(["source_id", "station_code"], as_index=False)[
+                ["trace_p_arrival_time", "trace_s_arrival_time"]].first(), on=["source_id", "station_code"])
+        times = table[["trace_p_arrival_time", "trace_s_arrival_time"]]
+        if len(table) != 2 * len(hinet_st) or times.isna().any().any():
+            fail(f"archive: the catalog's table has {len(table)} rows with times {times.values.tolist()}")
+        step_s["catalog"] = time.perf_counter() - t0
+
+        # ---- Hi-net: stations 0-3 as one event, zipped, through the session's wire
+        t0 = time.perf_counter()
+        origin = cat.events[0].origin.time
+        trs, chan_ids, table_lines = [], {}, []
+        for s_ in hinet_st:
+            for ci, comp in enumerate("UNE"):
+                tr = Trace(counts[s_, ci], dict(network="N", station=sta[s_], channel=comp, sampling_rate=SR,
+                                                starttime=t_start))
+                chan_ids[tr.id] = 0x200 + 3 * s_ + ci
+                table_lines.append(f"{0x200 + 3 * s_ + ci:04X} 1 0 {sta[s_]} {comp} 1 27 1.0 m/s 1.0 0.7 0.0 1.0")
+                trs.append(tr)
+        write_win32(Stream(trs), root / "event.cnt", chan_ids=chan_ids)
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w") as zf:
+            zf.writestr("event/event.cnt", (root / "event.cnt").read_bytes())
+            zf.writestr("event/event.ch", "\n".join(table_lines))
+        blob = buf.getvalue()
+        ev_origin = origin.datetime.replace(tzinfo=None)
+
+        class FakeWire:
+            """The portal's four calls over the one event (tests/test_hinet_net.py's fake, copied)."""
+
+            def __init__(self):
+                self.calls = []
+
+            def login(self):
+                self.calls.append("login")
+
+            def search_events(self, day, **kwargs):
+                self.calls.append(("search", day))
+                return [HinetEvent(ev_origin, 34.5, 139.2, 8.5, cat.events[0].magnitude.mag)] \
+                    if day == ev_origin.date() else []
+
+            def request_event(self, event, span_minutes):
+                self.calls.append(("request", event.origin))
+                return event.origin.strftime("%Y%m%d%H%M%S")
+
+            def download_event(self, request_id):
+                self.calls.append(("download", request_id))
+                return blob
+
+        wire = FakeWire()
+        dirs = HinetSession(wire, root / "hinet", span_minutes=20).get_event_waveform(
+            datetime.combine(ev_origin.date(), datetime.min.time()), ev_origin.replace(hour=23),
+            minmagnitude=cat.events[0].magnitude.mag)
+        if [d.name for d in dirs] != [ev_origin.strftime("%Y%m%d%H%M%S")] or not (dirs[0] / "event.cnt").exists():
+            fail(f"archive: the Hi-net session extracted {dirs} (wire calls {wire.calls})")
+        step_s["wire and extract"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        hinet_rows = table[table["source_id"] == cat.events[0].event_id].assign(source_id=dirs[0].name)
+        log = convert_win32_event_dirs(root / "hinet", hinet_rows, cut_pre_s=CUT_PRE_S, cut_post_s=CUT_POST_S)
+        if len(log) != len(hinet_st) or not (log["error"] == "").all() or not (log["n_components"] == 3).all():
+            fail(f"archive: convert_win32_event_dirs logged {log.to_dict('records')}")
+        files = {s_: root / "hinet" / "mseed" / f"{dirs[0].name}_N.{sta[s_]}.mseed" for s_ in hinet_st}
+        step_s["WIN32 convert"] = time.perf_counter() - t0
+
+        # ---- SAC: stations 4-7 as two event folders, one in upper case
+        t0 = time.perf_counter()
+        d0 = t_start.datetime
+        sidecar = (f"start_time: {d0.year} {d0.month} {d0.day} {d0.hour} {d0.minute} "
+                   f"{d0.second + d0.microsecond / 1e6:.2f}\n")
+        folders, sources = [root / "hvo_sac_archive" / "ev_lower", root / "hvo_sac_archive" / "ev_upper"], []
+        for k, s_ in enumerate(sac_st):
+            folder, upper = folders[k * 2 // len(sac_st)], k * 2 >= len(sac_st)
+            folder.mkdir(parents=True, exist_ok=True)
+            for ci, cha in enumerate(ident[s_][1]):
+                stem = folder / f"{sta[s_].lower()}_{cha[-1].lower()}"
+                path = stem.with_suffix(".SAC" if upper else ".sac")
+                write_sac(Trace(counts32[s_, ci], dict(network="HV", station=sta[s_], channel=cha,
+                                                       sampling_rate=SR, starttime=t_start)), path)
+                path.with_suffix(".PICK" if upper else ".pick").write_text(sidecar)
+                sources.append(path)
+        log = convert_sac_to_mseed(folders, root / "sac_mseed", num_processes=2)
+        if len(log) != len(sac_st) or not (log["error"].fillna("") == "").all():
+            fail(f"archive: convert_sac_to_mseed logged {log.to_dict('records')}")
+        for k, s_ in enumerate(sac_st):
+            files[s_] = root / "sac_mseed" / folders[k * 2 // len(sac_st)].name / f"HV.{sta[s_]}..mseed"
+        step_s["SAC convert"] = time.perf_counter() - t0
+
+        # ---- every file read back exactly, from the sidecar's start time
+        t0 = time.perf_counter()
+        side = read_sidecar_info(sources[0].with_suffix(".pick"))["start_time"]
+        side_t = UTC(f"{side[0]}-{int(side[1]):02d}-{int(side[2]):02d}T{int(side[3]):02d}:{int(side[4]):02d}:00") \
+            + float(side[5])
+        for path in sources:  # the sidecar is found beside either case, under a *_sac_* directory
+            got = read_sac_with_sidecar(path, t_offset=1.0).stats.starttime.timestamp
+            if got != side_t.timestamp + 1.0:
+                fail(f"archive: read_sac_with_sidecar({path.name}, t_offset=1) starts at {got}, want "
+                     f"{side_t.timestamp + 1.0}")
+        mem = Stream()
+        for s_ in range(stations):
+            st = read_mseed(files[s_])
+            start, arr, complete = acq_convert.stream_to_array(st, "ZNE")
+            want = counts[s_].copy()
+            want -= want.mean(axis=1, keepdims=True)
+            net, chans = ident[s_]
+            if (start.timestamp != side_t.timestamp or complete != 1.0 or not np.array_equal(arr, want)
+                    or sorted(tr.id for tr in st) != sorted(f"{net}.{sta[s_]}..{c}" for c in chans)
+                    or not all(np.array_equal(tr.data, counts32[s_, list(chans).index(tr.stats.channel)])
+                               for tr in st)):
+                fail(f"archive: {files[s_].name} read back is not the quantised array of station {s_} "
+                     f"from {side_t} (start {start}, completeness {complete})")
+            for ci, cha in enumerate(chans):
+                mem.append(Trace(counts32[s_, ci].copy(), dict(network=net, station=sta[s_], channel=cha,
+                                                               sampling_rate=SR, starttime=t_start)))
+        step_s["read back"] = time.perf_counter() - t0
+        file_mb = sum(p_.stat().st_size for p_ in files.values()) / 1e6
+
+        # ---- python -m volpick_tpu_torch pick on the 8 files, phase 9's model
+        export_pretrained(model, root / "models", name="smoke", default_args={
+            "detection_threshold": thresholds["Detection"], "P_threshold": thresholds["P"],
+            "S_threshold": thresholds["S"]})
+        os.environ["VOLPICK_TPU_MODELS"] = str(root / "models")
+        forwards = [0]
+
+        def count(mod, *_):
+            forwards[0] += isinstance(mod, EQTransformer)
+
+        out_csv = root / "picks.csv"
+        handle = torch.nn.modules.module.register_module_forward_hook(count)
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            cli.main(["pick", *[str(files[s_]) for s_ in range(stations)], "--weights", "smoke",
+                      "--overlap", str(overlap), "--output", str(out_csv), "--device", str(dev)])
+            torch.cuda.synchronize()
+            step_s["pick"] = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            handle.remove()
+        want = dict.fromkeys(launches, 0)
+        want.update(trigger_extract=1, lstm_multi=4 * forwards[0])
+        if forwards[0] < 1 or launches != want:
+            fail(f"archive: pick launches {launches}, want {want} ({forwards[0]} forwards)")
+        with open(out_csv, newline="") as f:
+            rows = list(csv.reader(f))
+        n_windows = stations * len(window_starts(n, model.in_samples, overlap))
+        ref = WaveformPicker(model, device=dev).classify(
+            mem, P_threshold=thresholds["P"], S_threshold=thresholds["S"],
+            detection_threshold=thresholds["Detection"], overlap=overlap, blinding=blinding, batch_size=batch)
+        ref_rows = [[p_.trace_id, p_.phase, p_.peak_time.isoformat(), f"{p_.peak_value:.4f}",
+                     p_.start_time.isoformat(), p_.end_time.isoformat()] for p_ in ref.picks]
+        if len(rows) < 2 or rows[1:] != ref_rows:
+            fail(f"archive: the pick CSV's {len(rows) - 1} rows are not classify()'s {len(ref_rows)} on the "
+                 f"quantised arrays")
+
+        # ---- the dataset writers, where h5py is installed
+        try:
+            import h5py  # noqa: F401
+            have_h5py = True
+        except ImportError:
+            have_h5py = False
+        datasets = {}
+        if have_h5py:
+            datasets = _archive_datasets(root, hinet_rows, files, sta, hinet_st, sac_st)
+        print("archive: " + (f"h5py installed: the dataset writers wrote {datasets} traces" if have_h5py else
+                             "no h5py: convert_catalog_to_dataset, extract_noise_from_dataset and "
+                             "convert_from_old_format not run (the CPU tests hold them)"))
+        print(f"archive on {card}: {stations} stations x 3 x {n} samples at {ARCHIVE_SCALE:g} counts a unit; "
+              f"{len(cat)} JMA events, {len(files)} miniSEED files ({len(hinet_st)} from WIN32, {len(sac_st)} "
+              f"from SAC) of {file_mb:.1f} MB read back exactly; pick: {len(rows) - 1} picks over {n_windows} "
+              f"windows, equal to classify(), {forwards[0]} forwards, launches {launches}; host-clock s: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in step_s.items()))
+        return dict(launches=launches, seconds=step_s, file_mb=file_mb, picks=len(rows) - 1, windows=n_windows,
+                    forwards=forwards[0], h5py=have_h5py, datasets=datasets)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_models is None:
+            os.environ.pop("VOLPICK_TPU_MODELS", None)
+        else:
+            os.environ["VOLPICK_TPU_MODELS"] = saved_models
+
+
+def _archive_datasets(root, hinet_rows, files, sta, hinet_st, sac_st) -> dict:
+    """Phase 11's dataset writers, where h5py is installed: the converted
+    files through convert_catalog_to_dataset (the catalog's stations with
+    their picks, the SAC stations outside the catalog as noise rows), its
+    noise rows through extract_noise_from_dataset, and the Hi-net files as
+    one event folder through convert_from_old_format. Each written waveform
+    must equal what the writer was given, and the sample indices the picks."""
+    import shutil
+
+    import pandas as pd
+
+    from volpick_tpu_torch.acquisition import convert as acq_convert
+    from volpick_tpu_torch.data.dataset import WaveformDataset
+    from volpick_tpu_torch.io import read_mseed
+    from volpick_tpu_torch.picker import UTC
+    from volpick_tpu_torch.picker.stage_times import SR
+
+    by_name = {p_.stem: p_ for p_ in files.values()}
+    rows = hinet_rows.assign(trace_name=[files[s_].stem for s_ in hinet_st]).to_dict("records")
+    rows += [{"source_id": f"noise_{sta[s_]}", "source_type": "noise", "station_network_code": "HV",
+              "station_code": sta[s_], "trace_name": files[s_].stem} for s_ in sac_st]
+    acq_convert.convert_catalog_to_dataset(pd.DataFrame(rows), lambda name: read_mseed(by_name[name]),
+                                           root / "dataset", seed=0)
+    ds = WaveformDataset(root / "dataset")
+    if len(ds) != len(rows):
+        fail(f"archive: convert_catalog_to_dataset wrote {len(ds)} traces of {len(rows)}")
+    for i, row in enumerate(rows):
+        st = read_mseed(by_name[row["trace_name"]])
+        for tr in st:
+            tr.detrend_demean()
+        start, want, _ = acq_convert.stream_to_array(st, "ZNE")
+        got = ds.get_waveforms(i)
+        p_at = row.get("trace_p_arrival_time")
+        p_want = int((UTC(p_at) - start) * SR) if isinstance(p_at, str) else None
+        p_got = ds.metadata["trace_p_arrival_sample"].iloc[i]
+        if not np.array_equal(got, want.astype(got.dtype)) or (p_want is None) != pd.isna(p_got) \
+                or (p_want is not None and int(p_got) != p_want):
+            fail(f"archive: convert_catalog_to_dataset's trace {i} is not its file's (P sample {p_got}, "
+                 f"want {p_want})")
+    noise = acq_convert.extract_noise_from_dataset(ds, root / "noise", n_traces=len(sac_st), seed=0)
+    nds = WaveformDataset(noise)
+    pool = [ds.get_waveforms(i) for i in range(len(rows)) if rows[i]["source_type"] == "noise"]
+    if len(nds) != len(sac_st) or not all(any(np.array_equal(nds.get_waveforms(i), w) for w in pool)
+                                          for i in range(len(nds))):
+        fail(f"archive: extract_noise_from_dataset wrote {len(nds)} traces, want the {len(sac_st)} noise rows")
+    ev = root / "old" / "ev0"
+    ev.mkdir(parents=True)
+    pd.DataFrame([{"event_id": "ev0", "origin_time": hinet_rows["source_origin_time"].iloc[0],
+                   "hypo_lat": 34.5, "hypo_lon": 139.2, "hypo_depth": 8.5, "magnitude": 2.3,
+                   "event_type": "lp"}]).to_csv(ev / "event_info.csv")
+    picks = {}
+    for s_, (_, row) in zip(hinet_st, hinet_rows.iterrows()):
+        shutil.copy(files[s_], ev / files[s_].name)
+        picks[files[s_].name] = {"network": "N", "station": sta[s_], "instrument": "", "latitude": 35.0,
+                                 "longitude": 139.0, "elevation_m": 0.0, "p_time": row["trace_p_arrival_time"],
+                                 "s_time": row["trace_s_arrival_time"], "first_motion": None}
+    pd.DataFrame.from_dict(picks, orient="index").to_csv(ev / "picks.csv")
+    acq_convert.convert_from_old_format(root / "old", root / "old_ds", seed=0)
+    ods = WaveformDataset(root / "old_ds")
+    if len(ods) != len(hinet_st):
+        fail(f"archive: convert_from_old_format wrote {len(ods)} traces, want {len(hinet_st)}")
+    for i, (name, pick) in enumerate(picks.items()):
+        start, want, _ = acq_convert.stream_to_array(read_mseed(ev / name), "ZNE")
+        got = ods.get_waveforms(i)
+        if not np.array_equal(got, want.astype(got.dtype)) or \
+                int(ods.metadata["trace_p_arrival_sample"].iloc[i]) != int((UTC(pick["p_time"]) - start) * SR):
+            fail(f"archive: convert_from_old_format's trace {i} is not {name}'s")
+    return {"convert_catalog_to_dataset": len(ds), "extract_noise_from_dataset": len(nds),
+            "convert_from_old_format": len(ods)}
 
 
 def main() -> None:
@@ -2290,6 +2677,11 @@ def main() -> None:
                                by_path["eqtransformer"], (prob, t1, t2))
     by_path.update(inspecting["launches"])
     del waves, meta
+
+    # ---- 11. an archive to picks: JMA deck, Hi-net wire, WIN32 / SAC to
+    # miniSEED, pick on phase 9's model
+    archive_phase(dev, card, zero_counts, read_counts, data, t_start, picking.pop("model"),
+                  picking.pop("thresholds"))
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bnd, library_ms=None, **extra):
         return dict({"name": name, "route": "cuda", "source": f"volpick_tpu_torch/csrc/{source}",

@@ -285,7 +285,10 @@ def test_port_imports_no_jax():
         "             'ops.cuda.rescnn', 'ops.cuda.triggers', 'ops.cuda.lstm', 'ops.cuda.attention',\n"
         "             'eval.task0', 'eval.task123', '__main__', 'io.miniseed', 'io.win32',\n"
         "             'core.sacio', 'ops.features', 'utils.qc', 'classical', 'data.assemble',\n"
-        "             'utils.profiling', 'utils.plotting'):\n"
+        "             'utils.profiling', 'utils.plotting', 'acquisition', 'acquisition.events',\n"
+        "             'acquisition.catalogs', 'acquisition.jma', 'acquisition.comcat', 'acquisition.download',\n"
+        "             'acquisition.convert', 'acquisition.sac_convert', 'acquisition.hinet',\n"
+        "             'acquisition.hinet_net'):\n"
         "    assert 'volpick_tpu_torch.' + want in sys.modules, want\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'volpick_tpu')]\n"
         "print('BAD', sorted(bad))\n"

@@ -17,9 +17,11 @@ import subprocess
 import threading
 from pathlib import Path
 
-from volpick_tpu_torch.ops.cuda._build import BUILD_DIR
-
-NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+ROOT = Path(__file__).resolve().parents[2]
+NATIVE_DIR = ROOT / "native"
+# the directory of ops/cuda/_build.py's BUILD_DIR, named here so that the
+# readers (and the acquisition workers that write with them) load without torch
+BUILD_DIR = ROOT / "build" / "volpick_tpu_torch"
 CXX_FLAGS = ("-O2", "-Wall", "-shared", "-fPIC")
 
 _lock = threading.Lock()
