@@ -210,6 +210,31 @@
    and convert_from_old_format also run on the files. Prints the host-clock
    seconds of each step, the MB written and the pick count.
 
+12. the multi-GPU layer (volpick_tpu_torch/parallel/mesh.py) in ranks that
+   are child processes of scripts/mesh_ranks.py: (a) NCCL over
+   torch.cuda.device_count() ranks, one a card (a world of one on a
+   one-card machine, which still runs the process group, the global
+   BatchNorm's all-reduces and the gathers), and (b) gloo, two ranks both on
+   cuda:0 (NCCL refuses two ranks on one card). Each rank fits
+   EQTransformer at full width with the training config of phase 7 (EMA,
+   drop_rate 0.1) through Trainer.fit on the world's mesh: one epoch of 3
+   global batches of 256 rows from phase 7's pool (128 rows a gloo rank)
+   and one validation pass; then classifies the bench stream through
+   WaveformPicker(mesh=) on a full-width EQTransformer with 4c's stretched
+   heads (4 stations a gloo rank), with its K1 and K2 launches counted.
+   Meanwhile this process runs the same fit and classify on one device.
+   Fails unless every rank's global losses lie within 1e-4 relative of the
+   one-process run's, its parameters and EMA within the distance Adam lets
+   two float32 runs drift apart (2 x 1.0027 x the sum of the step lrs, plus
+   one rounding of the largest parameter a step: a gradient near 0 may
+   change sign between summation orders, and a first Adam step is about
+   lr x sign(g)), its BatchNorm statistics within that plus 1e-4 of their
+   size, the ranks of a world hold the same tensors bit for bit, only rank
+   0 wrote the fit's files, every rank's picks equal the one-device picks
+   exactly, and every rank launched K1 once and K2 at least once (16 on a
+   gloo rank: 4 forwards). Prints each rank's launches and host seconds;
+   a rank that fails or outlasts 300 s fails the phase.
+
 Exits non-zero on any failure and without a CUDA device. The last two lines
 are a JSON summary of the kernels and {"ok": true, "device": {...}}.
 """
@@ -262,6 +287,16 @@ PLOT_TOL, QC_EVENTS, QC_NOISE, QC_GAP = 2e-4, 16, 8, 2e-3
 # trim's margins before the first pick and after the last reach past the
 # 20 minutes
 ARCHIVE_SCALE, CUT_PRE_S, CUT_POST_S = 1e4, 400.0, 1200.0
+# phase 12: the data-parallel fit at a global batch of MESH_BATCH rows,
+# MESH_STEPS steps; the ranks' global losses against one process's; Adam's
+# step over lr for t <= 3 (Cauchy-Schwarz on the bias-corrected moments:
+# sqrt(sum_i a_i^2 / b_i) <= 1.0027); BatchNorm statistics' share beyond the
+# parameter bound (sums of float32 in other orders); the ranks' time limit
+MESH_BATCH, MESH_STEPS, MESH_LOSS_RTOL, ADAM_U_MAX, MESH_STAT_RTOL, MESH_TIMEOUT = 256, 3, 1e-4, 1.0027, 1e-4, 300
+# and the float64 steps that check the mechanism: MESH64_STEPS global batches
+# of MESH64_BATCH rows against one process to the CPU tests' pins (losses
+# relative, parameters / EMA / BatchNorm statistics absolute)
+MESH64_BATCH, MESH64_STEPS, MESH64_LOSS_RTOL, MESH64_ATOL = 32, 3, 1e-6, 1e-7
 GOLDEN_METRICS = ["prob_thre", "tp_thre"] + [  # the reference's {set}_metrics.csv (`eval_taks0.py:722-783`)
     f"{ph}_{c}" for ph in ("p", "s") for c in (
         "TP", "FP", "FN", "precision", "recall", "F1score", "mean", "median", "std", "MAE", "MAD", "out",
@@ -1726,6 +1761,200 @@ def _archive_datasets(root, hinet_rows, files, sta, hinet_st, sac_st) -> dict:
             "convert_from_old_format": len(ods)}
 
 
+def mesh_phase(dev, card, waves, meta, data) -> dict:
+    """Phase 12: the multi-GPU layer through its entry points, in ranks that
+    are child processes (``scripts/mesh_ranks.py``, which imports nothing of
+    this file). (a) NCCL over every card of the machine, each rank on its
+    own; (b) gloo, two ranks both on cuda:0 (NCCL refuses two ranks on one
+    card). Each rank fits EQTransformer at full width with the training
+    config (EMA, drop_rate 0.1) for one epoch of MESH_STEPS global batches of
+    MESH_BATCH rows and one validation pass through ``Trainer.fit`` on the
+    world's mesh, takes MESH64_STEPS steps of the same model in float64 on
+    global batches of MESH64_BATCH rows, and classifies the bench stream
+    through ``WaveformPicker(mesh=)`` (its share of the stations). Meanwhile
+    this process runs the same fit, steps and classify on one device.
+
+    The float64 steps check the mechanism (global BatchNorm, dropout at the
+    global shape, the gradients' all-reduce): losses within MESH64_LOSS_RTOL
+    and parameters, EMA and BatchNorm statistics within MESH64_ATOL of one
+    process. The float32 fit checks its losses to MESH_LOSS_RTOL; its
+    parameters and EMA are held only to a sanity limit, the distance Adam
+    lets two float32 runs drift apart whatever their gradients
+    (``adam_bound``; BatchNorm statistics that plus MESH_STAT_RTOL of their
+    size). Fails unless those hold, the ranks of a world hold the same
+    tensors bit for bit, only rank 0 wrote the fit's files, every rank's
+    picks equal the one-device picks exactly, and every rank launched K1
+    once and K2 its share of the one-device launches (forwards of its
+    stations: the one device's over the world size). Prints each rank's
+    launches and host seconds."""
+    import importlib.util
+    import shutil
+    import socket
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    from volpick_tpu_torch.models import load_model
+    from volpick_tpu_torch.picker import WaveformPicker
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "scripts", "mesh_ranks.py")
+    spec = importlib.util.spec_from_file_location("mesh_ranks", script)
+    ranks_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks_mod)
+    t_phase = time.perf_counter()
+    io = Path(tempfile.mkdtemp(prefix="volpick_mesh_"))
+    procs = []
+    try:
+        np.save(io / "pool.npy", waves)
+        np.savez(io / "pool_meta.npz",
+                 p=np.array([m["trace_p_arrival_sample"] for m in meta], np.float32),
+                 s=np.array([m["trace_s_arrival_sample"] for m in meta], np.float32),
+                 is_lp=np.array([m["source_type"] == "lp" for m in meta], np.float32),
+                 is_dev=np.array([m["split"] == "dev" for m in meta]))
+        (io / "spec.json").write_text(json.dumps({"batch": MESH_BATCH, "train_traces": MESH_STEPS * MESH_BATCH,
+                                                  "batch64": MESH64_BATCH, "steps64": MESH64_STEPS}))
+        np.save(io / "stream.npy", data)
+        # the classify model: seeded, heads stretched on its own curves (4c)
+        model = load_model("eqtransformer", seed=0, device=dev)
+        picker = WaveformPicker(model, device=dev)
+        kw = dict(overlap=5500, blinding=(500, 500), batch_size=256)
+        flat = picker.annotate_array(data, **kw)
+        stretch_heads(model, [flat[:, ki, 500:-500] for ki in range(3)])
+        curves = picker.annotate_array(data, **kw)
+        thr = {lab: float(np.percentile(curves[:, i], 99.9)) for i, lab in enumerate(picker._prob_channels())}
+        torch.save({"state": {k: v.cpu() for k, v in model.state_dict().items()}, "thresholds": thr},
+                   io / "classify.pt")
+        del model, picker
+        t_inputs = time.perf_counter() - t_phase
+
+        worlds = {"nccl": (torch.cuda.device_count(), lambda r: f"cuda:{r}"), "gloo": (2, lambda r: "cuda:0")}
+        for tag, (world, device_of) in worlds.items():
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            for r in range(world):
+                log = open(io / f"{tag}_{r}.log", "w")
+                env = dict(os.environ, LOCAL_RANK=str(r), PYTHONPATH=here)
+                procs.append((tag, r, log, subprocess.Popen(
+                    [sys.executable, script, str(io), tag, tag, str(r), str(world), str(port), device_of(r)],
+                    cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)))
+        # the one-process runs, while the ranks start
+        ref = dict(ranks_mod.fit(io, dev, None, save_dir=io / "weights_one"), **ranks_mod.steps64(io, dev, None),
+                   **ranks_mod.classify(io, dev, None))
+        deadline = time.monotonic() + MESH_TIMEOUT
+        for tag, r, log, p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"mesh: {tag} rank {r} still running after {MESH_TIMEOUT} s")
+            log.close()
+            if p.returncode != 0:
+                fail(f"mesh: {tag} rank {r} exited {p.returncode}:\n{(io / f'{tag}_{r}.log').read_text()[-4000:]}")
+        phase_s = time.perf_counter() - t_phase
+
+        bound = adam_bound(ref["lrs"], ref["state"])
+        summary = {"phase_s": phase_s, "inputs_s": t_inputs, "one_process": {
+            "fit_s": ref["fit_s"], "steps64_s": ref["steps64_s"], "classify_s": ref["classify_s"],
+            "launches": ref["launches"]}, "param_bound": bound}
+        for tag, (world, _) in worlds.items():
+            outs = [torch.load(io / f"{tag}_{r}.pt", weights_only=False) for r in range(world)]
+            rows = (io / f"weights_{tag}" / "mesh" / "metrics.csv").read_text().strip().splitlines()
+            if len(rows) != 2 or sorted(os.listdir(io / f"weights_{tag}")) != ["mesh"]:
+                fail(f"mesh {tag}: rank 0 must write one metrics row, got {rows}")
+            worst = {"loss": 0.0, "param": 0.0, "ema": 0.0, "stat": 0.0, "loss64": 0.0, "state64": 0.0}
+            for out in outs:
+                if len(out["losses"]) != MESH_STEPS or out["lrs"] != ref["lrs"]:
+                    fail(f"mesh {tag} rank {out['rank']}: {len(out['losses'])} steps at lrs {out['lrs']}, "
+                         f"want {MESH_STEPS} at {ref['lrs']}")
+                got = out["losses"] + [out["history"][0]["val_loss"]]
+                want = ref["losses"] + [ref["history"][0]["val_loss"]]
+                rel = float(np.max(np.abs(np.subtract(got, want)) / np.abs(want)))
+                worst["loss"] = max(worst["loss"], rel)
+                if not rel <= MESH_LOSS_RTOL:
+                    fail(f"mesh {tag} rank {out['rank']}: losses {got}, one process {want}")
+                for part, key in (("state", "param"), ("ema", "ema")):
+                    for name, v in ref[part].items():
+                        if not v.is_floating_point():
+                            continue
+                        d = float((out[part][name] - v).abs().max())
+                        stat = "running_" in name
+                        lim = bound + (MESH_STAT_RTOL * float(v.abs().max()) if stat else 0.0)
+                        which = "stat" if stat else key
+                        worst[which] = max(worst[which], d)
+                        if not d <= lim:
+                            fail(f"mesh {tag} rank {out['rank']}: {part} {name} differs by {d:.3e} > {lim:.3e}")
+                rel = float(np.max(np.abs(np.subtract(out["losses64"], ref["losses64"])) / np.abs(ref["losses64"])))
+                worst["loss64"] = max(worst["loss64"], rel)
+                if len(out["losses64"]) != MESH64_STEPS or not rel <= MESH64_LOSS_RTOL:
+                    fail(f"mesh {tag} rank {out['rank']}: float64 losses {out['losses64']}, one process "
+                         f"{ref['losses64']}")
+                for part in ("state64", "ema64"):
+                    for name, v in ref[part].items():
+                        if not v.is_floating_point():
+                            continue
+                        d = float((out[part][name] - v).abs().max())
+                        worst["state64"] = max(worst["state64"], d)
+                        if not d <= MESH64_ATOL:
+                            fail(f"mesh {tag} rank {out['rank']}: float64 {part} {name} differs by {d:.3e} > "
+                                 f"{MESH64_ATOL}")
+                for label, arrs in ref["picks"].items():
+                    for i, a in enumerate(arrs):
+                        if not np.array_equal(out["picks"][label][i], a):
+                            fail(f"mesh {tag} rank {out['rank']}: picks of {label} (output {i}) differ from the "
+                                 f"one-device classify")
+                k2 = ref["launches"]["lstm_multi"] // world
+                if out["launches"]["trigger_extract"] != 1 or out["launches"]["lstm_multi"] != k2:
+                    fail(f"mesh {tag} rank {out['rank']}: launches {out['launches']}, want K1 1 and K2 {k2}")
+            for out in outs[1:]:
+                for part in ("state", "ema", "state64", "ema64"):
+                    if any(not torch.equal(out[part][k], outs[0][part][k]) for k in out[part]):
+                        fail(f"mesh {tag}: rank {out['rank']}'s {part} is not rank 0's")
+                if out["losses"] != outs[0]["losses"] or out["losses64"] != outs[0]["losses64"]:
+                    fail(f"mesh {tag}: rank {out['rank']}'s losses are not rank 0's")
+            n_picks = int(sum(v[2].sum() for v in ref["picks"].values()))
+            summary[tag] = {"world": world, "worst": worst, "picks": n_picks, "ranks": [
+                {k: out[k] for k in ("rank", "device", "join_s", "fit_s", "steps64_s", "classify_s", "total_s",
+                                     "launches")}
+                for out in outs]}
+            print(f"mesh {tag} on {card}: {world} rank(s) x {MESH_BATCH // world} rows of a {MESH_BATCH}-row global "
+                  f"batch, {MESH_STEPS} steps + validation, losses {[round(v, 6) for v in outs[0]['losses']]} "
+                  f"(largest relative difference to one process {worst['loss']:.2e}), parameters / EMA / BN "
+                  f"statistics within {worst['param']:.2e} / {worst['ema']:.2e} / {worst['stat']:.2e} "
+                  f"(sanity limit {bound:.2e}); float64, {MESH64_STEPS} steps x {MESH64_BATCH} rows: losses within "
+                  f"{worst['loss64']:.2e} relative, parameters / EMA / BN statistics within "
+                  f"{worst['state64']:.2e}; classify of {data.shape[0] // world} stations a rank: "
+                  f"{n_picks} picks equal to one device's")
+            for out in outs:
+                print(f"  rank {out['rank']} on {out['device']}: K1 {out['launches']['trigger_extract']}, "
+                      f"K2 {out['launches']['lstm_multi']}; host s: join {out['join_s']:.2f}, fit "
+                      f"{out['fit_s']:.2f}, float64 steps {out['steps64_s']:.2f}, classify "
+                      f"{out['classify_s']:.3f}, whole rank {out['total_s']:.2f}")
+        print(f"mesh: one process: fit {ref['fit_s']:.2f} s, float64 steps {ref['steps64_s']:.2f} s, classify "
+              f"{ref['classify_s']:.3f} s (K1 "
+              f"{ref['launches']['trigger_extract']}, K2 {ref['launches']['lstm_multi']}); inputs "
+              f"{t_inputs:.2f} s; the phase took {phase_s:.1f} s")
+        return summary
+    finally:
+        for _, _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(io, ignore_errors=True)
+
+
+def adam_bound(lrs, state) -> float:
+    """How far two float32 runs of the same Adam steps may leave a parameter
+    apart: each moves it by at most ADAM_U_MAX * lr a step, in either
+    direction (a gradient near 0 can change sign between summation orders,
+    and Adam's first steps are about lr * sign(g)), plus one float32 rounding
+    of the largest parameter a step. A sanity limit: any gradient, even one
+    of the wrong sign, stays inside it; the float64 steps check gradients."""
+    top = max(float(v.abs().max()) for k, v in state.items() if v.is_floating_point() and "running_" not in k)
+    return 2 * ADAM_U_MAX * float(sum(lrs)) + len(lrs) * float(np.spacing(np.float32(top)))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -2676,12 +2905,19 @@ def main() -> None:
     inspecting = inspect_phase(dev, card, zero_counts, read_counts, waves, meta, thresholds_of["eqtransformer"],
                                by_path["eqtransformer"], (prob, t1, t2))
     by_path.update(inspecting["launches"])
-    del waves, meta
 
     # ---- 11. an archive to picks: JMA deck, Hi-net wire, WIN32 / SAC to
     # miniSEED, pick on phase 9's model
     archive_phase(dev, card, zero_counts, read_counts, data, t_start, picking.pop("model"),
                   picking.pop("thresholds"))
+
+    # ---- 12. the multi-GPU layer: NCCL over the machine's cards, two gloo
+    # ranks on cuda:0; a data-parallel fit and a station-sharded classify
+    meshing = mesh_phase(dev, card, waves, meta, data)
+    del waves, meta
+    for tag in ("nccl", "gloo"):
+        for r in meshing[tag]["ranks"]:
+            by_path[f"eqtransformer/mesh {tag} rank {r['rank']}"] = r["launches"]
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bnd, library_ms=None, **extra):
         return dict({"name": name, "route": "cuda", "source": f"volpick_tpu_torch/csrc/{source}",
@@ -2775,7 +3011,7 @@ def main() -> None:
         "training": {k: v for k, v in training.items() if k != "launches"},
         "evaluation": {k: v for k, v in evaluation.items() if k not in ("launches", "k1_bound")},
         "bf16_paths": bf16_of, "pick": {k: v for k, v in picking.items() if k != "launches"},
-        "inspect": {k: v for k, v in inspecting.items() if k != "launches"}}))
+        "inspect": {k: v for k, v in inspecting.items() if k != "launches"}, "mesh": meshing}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -8,7 +8,8 @@ entries) and additive attention (both entries) 1e-5 (the tests/test_pallas.py pi
 3e-4; picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another
 order on the card); a train step on the card against the CPU port in
 float64: loss 1e-10 relative, gradients 1e-6 of each tensor's largest
-entry, parameters and EMA after the step 1e-9. The bfloat16 entries of the
+entry, parameters and EMA after the step 1e-9 (the same pins hold a step of a
+world of one NCCL rank to the plain step). The bfloat16 entries of the
 LSTM, additive attention and MHA kernels against their bf16 twins: one bf16
 ulp, |Δ| <= 2^-7 |twin| + 1e-6 (the twins do the kernels' float32
 arithmetic in another order; a sum that lands near a rounding boundary may
@@ -1065,3 +1066,56 @@ def test_prediction_examples_on_the_card_match_the_cpu(dev):
         assert list(g) == list(w) == ["Detection", "P", "S"]
         for k in g:
             assert g[k].shape == (model.in_samples,) and np.abs(g[k] - w[k]).max() <= 2e-4, k
+
+
+def test_nccl_world_of_one_equals_one_device(dev, tmp_path):
+    """A world of one NCCL rank (a file store under tmp_path): a Trainer step
+    over its mesh of a small EQTransformer (EMA on, drop_rate 0.1; global
+    BatchNorm, dropout drawn at the global shape, gradients all-reduced) in
+    float64 equals the plain step on the same batch and dropout seed (loss
+    1e-10 relative, parameters, BatchNorm statistics and EMA 1e-9, the pins
+    above), and WaveformPicker(mesh=) returns the plain picker's picks
+    exactly, launching K1 once."""
+    import copy
+    import datetime
+
+    import torch.distributed as dist
+
+    from volpick_tpu_torch.parallel import make_mesh
+
+    kw = dict(seed=4, in_samples=1504, lstm_blocks=1, device=dev)
+    plain_model = load_model("eqtransformer", drop_rate=0.1, **kw).double()
+    dp_model = copy.deepcopy(plain_model)
+    batch = _train_batch(6, 1504, torch.float64, dev)
+    plain = Trainer(plain_model, ema=True, device=dev)
+    l_plain = float(plain.train_step(batch, 1e-3, plain.dropout_generator(5)))
+
+    rng = np.random.default_rng(0)
+    data = (rng.normal(size=(2, 3, 12000)) * 0.05).astype(np.float32)
+    pick_kw = dict(overlap=1128, blinding=(200, 200), batch_size=16)
+    curves = WaveformPicker(load_model("eqtransformer", **kw), device=dev).annotate_array(data, **pick_kw)
+    thr = {lab: float(np.percentile(curves[:, i], 99.5)) for i, lab in enumerate(("Detection", "P", "S"))}
+    want = WaveformPicker(load_model("eqtransformer", **kw), device=dev).classify_arrays(data, thr, **pick_kw)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(device=dev)
+        assert mesh.device == dev
+        dp = Trainer(dp_model, ema=True)
+        assert dp.mesh is not None and dp.shard == (0, 1)
+        l_dp = float(dp.train_step(batch, 1e-3, dp.dropout_generator(5)))
+        before = cuda_trig.launches
+        got = WaveformPicker(load_model("eqtransformer", **kw), mesh=mesh).classify_arrays(data, thr, **pick_kw)
+        assert cuda_trig.launches == before + 1
+    finally:
+        dist.destroy_process_group()
+    assert abs(l_dp - l_plain) <= 1e-10 * abs(l_plain)
+    for name, v in plain_model.state_dict().items():
+        assert (dp_model.state_dict()[name] - v).abs().max().item() <= 1e-9, name
+    for name, v in plain.ema_params.items():
+        assert (dp.ema_params[name] - v).abs().max().item() <= 1e-9, name
+    assert sum(int(v[2].sum()) for v in want.values()) > 0
+    for label, arrs in want.items():
+        for a, b in zip(arrs, got[label]):
+            np.testing.assert_array_equal(b, a, err_msg=label)

@@ -168,6 +168,12 @@ class _PortTrainer:
     def train_step(self, batch, lr, generator=None):
         return torch.tensor(np.float32(next(self._losses)))
 
+    def batches(self, gen):
+        return gen.epoch()
+
+    def dropout_generator(self, seed):
+        return torch.Generator().manual_seed(seed)
+
 
 LOSS_CASES = {
     "dip": [2.0 - np.sin(i / 6) * (1 + i / 40) for i in range(30)],

@@ -10,12 +10,14 @@ kernel, the same recurrences in plain PyTorch on any device. ``batch_norm``
 is the eval form; in train mode the models call their ``nn.BatchNorm1d``
 modules, whose batch statistics and running-statistics update (momentum 0.1,
 unbiased variance) are the JAX function's. ``dropout`` and
-``spatial_dropout1d`` draw their keep masks from an explicit generator.
+``spatial_dropout1d`` draw their keep masks from an explicit generator, or
+from a ``RankRows`` of one shared by the ranks of a data mesh.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -130,21 +132,41 @@ def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return torch.repeat_interleave(x, factor, dim=-1)
 
 
-def _drop(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool, mask_shape):
+@dataclasses.dataclass(frozen=True)
+class RankRows:
+    """A generator that every rank of a data mesh seeds alike, for rank
+    `rank` of `world`: a mask is drawn at the global batch's shape and the
+    rank keeps its block of rows, so the masks of a data-parallel step are
+    those of one process holding the whole batch (JAX's sharded step draws
+    them at the global shape too)."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
+def _drop(x: torch.Tensor, rate: float, generator: Union[torch.Generator, RankRows, None], train: bool,
+          mask_shape):
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(mask_shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if isinstance(generator, RankRows):
+        b = mask_shape[0]
+        u = torch.rand((b * generator.world,) + tuple(mask_shape[1:]), generator=generator.generator,
+                       device=x.device)[generator.rank * b : (generator.rank + 1) * b]
+    else:
+        u = torch.rand(mask_shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool):
+def dropout(x: torch.Tensor, rate: float, generator: Union[torch.Generator, RankRows, None], train: bool):
     """Zero each element with probability `rate` and scale the kept ones by
     1 / (1 - rate); the identity unless training with a generator and rate > 0."""
     return _drop(x, rate, generator, train, x.shape)
 
 
-def spatial_dropout1d(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool):
+def spatial_dropout1d(x: torch.Tensor, rate: float, generator: Union[torch.Generator, RankRows, None],
+                      train: bool):
     """``dropout`` of whole channels of (B, C, W) (keras SpatialDropout1D)."""
     return _drop(x, rate, generator, train, (x.shape[0], x.shape[1], 1))
 

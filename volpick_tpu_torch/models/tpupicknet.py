@@ -147,12 +147,15 @@ class TPUPickNet(nn.Module):
     def n_tokens(self) -> int:
         return self.in_samples // self.patch_stride
 
-    def resolve_attn(self) -> str:
+    def resolve_attn(self, sharded: bool = False) -> str:
         """The attention route: the ``attn`` field, else ``$VOLPICK_TPN_ATTN``,
-        else ``"xla"`` (the order of the JAX ``resolve_attn``)."""
+        else ``"xla"`` (the order of the JAX ``resolve_attn``). ``sharded``
+        (a picker over a mesh) ignores the environment, as JAX does: only
+        the field can pick ``"pallas"`` there."""
         if self.attn is not None:
             return self.attn
-        return os.environ.get("VOLPICK_TPN_ATTN", "").strip().lower() or "xla"
+        env = os.environ.get("VOLPICK_TPN_ATTN", "").strip().lower()
+        return env if env and not sharded else "xla"
 
     def _attention(self, qkv: torch.Tensor, attn: str) -> torch.Tensor:
         """The projection qkv (B, T, 3, H, Dh) → (B, T, H*Dh), q scaled by

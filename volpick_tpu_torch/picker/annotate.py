@@ -29,6 +29,13 @@ so results stay comparable with the CPU and the JAX reference. With
 ``precision="bfloat16"`` step 3 runs in bf16, the kernels of the forward
 included, and its curves come back as float32, so stacking and trigger
 extraction stay float32, as in the JAX picker.
+
+With ``mesh=`` (``parallel.mesh.make_mesh``, one process a rank) the station
+axis of ``classify_arrays`` and ``annotate_array`` is split over the mesh's
+"data" axis, as the JAX picker shards it: each rank runs steps 1-5 on its
+block of stations, and the fixed-size pick buffers (or the curves) are
+all-gathered, so every rank returns what one device returns for all
+stations.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from volpick_tpu_torch.core.picks import ClassifyOutput, Detection, Pick, PickList
 from volpick_tpu_torch.core.stream import Stream, Trace, UTC, group_streams_by_instrument
@@ -59,6 +67,7 @@ from volpick_tpu_torch.ops.windows import (
     uniform_stack_weights,
     window_starts,
 )
+from volpick_tpu_torch.parallel.mesh import data_shard, mesh_device
 
 __all__ = ["WaveformPicker", "Stream", "Trace", "UTC"]
 
@@ -79,7 +88,11 @@ class WaveformPicker:
     once, here. ``precision`` is the JAX picker's too: ``"float32"`` or
     ``"bfloat16"``, which runs the forward on a bf16 copy of the model (its
     parameters and BatchNorm statistics), made here once; the caller's model
-    keeps its float32 weights."""
+    keeps its float32 weights. ``mesh`` splits the station axis over the
+    ranks of its "data" axis (the number of stations must divide); the
+    picker then runs on ``mesh.device``, and a TPUPickNet whose ``attn``
+    field is unset takes "xla" whatever the environment says (JAX's
+    ``resolve_attn(sharded=True)``)."""
 
     def __init__(
         self,
@@ -89,10 +102,15 @@ class WaveformPicker:
         use_pallas: bool = False,
         span_conditioning: Optional[bool] = None,
         precision: str = "float32",
+        mesh=None,
     ):
         if precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision must be float32|bfloat16, got {precision!r}")
+        if mesh is not None:
+            device = mesh_device(mesh, device, "WaveformPicker")
         device = resolve_device(device, "WaveformPicker")
+        self.mesh = mesh
+        self._group = mesh.get_group("data") if mesh is not None else None
         self.device = device
         self.precision = precision
         self.model = model.to(device).eval()
@@ -111,7 +129,7 @@ class WaveformPicker:
         # family's fused) now, so a later change of the environment does not
         # switch it mid-run
         if hasattr(model, "resolve_attn"):
-            model.attn = model.resolve_attn()
+            model.attn = model.resolve_attn(sharded=mesh is not None)
         if hasattr(model, "resolve_fused"):
             model.fused = model.resolve_fused()
         # the module the forward runs: the model itself, or its bf16 copy
@@ -284,6 +302,32 @@ class WaveformPicker:
     def _to_device(self, data: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(data, dtype=np.float32), device=self.device)
 
+    def _my_stations(self, data: np.ndarray) -> np.ndarray:
+        """This rank's block of the stations of `data` (all of them without a
+        mesh)."""
+        if self.mesh is None:
+            return data
+        rank, n = data_shard(self.mesh)
+        if data.shape[0] % n:
+            raise ValueError(f"{data.shape[0]} stations do not divide over the mesh's {n} ranks")
+        per = data.shape[0] // n
+        return data[rank * per : (rank + 1) * per]
+
+    def _gather_stations(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks of `t` joined along its station axis `dim`, in
+        rank order. NCCL gathers on the card; gloo, whose CUDA support stops
+        at all_reduce and broadcast, on CPU copies."""
+        if self.mesh is None:
+            return t
+        src = t.cpu() if dist.get_backend(self._group) == "gloo" else t
+        src = src.contiguous()
+        dtype = src.dtype
+        if dtype == torch.bool:
+            src = src.to(torch.uint8)
+        parts = [torch.empty_like(src) for _ in range(dist.get_world_size(self._group))]
+        dist.all_gather(parts, src, group=self._group)
+        return torch.cat(parts, dim=dim).to(dtype)
+
     def classify_arrays(
         self,
         data: np.ndarray,
@@ -341,17 +385,21 @@ class WaveformPicker:
         # the noise row never triggers; any other missing label is a caller
         # mistake and fails loudly
         thr = [thresholds.get(lab, 2.0) if lab == "N" else thresholds[lab] for lab in channels]
+        mine = self._my_stations(data)
         with inference_work(self.device):
             curves = self._curves(
-                self._to_device(data), starts, padded_total, tuple(blinding), stacking,
+                self._to_device(mine), starts, padded_total, tuple(blinding), stacking,
                 batch_size, stride, flush_start,
             )
             trig = [(label, ki, t) for ki, (label, t) in enumerate(zip(channels, thr)) if label != "N"]
             flat = torch.cat([curves[:, ki] for _, ki, _ in trig], dim=0)
             thr_rows = torch.cat([
-                torch.full((s,), t, dtype=torch.float32, device=self.device) for _, _, t in trig
+                torch.full((len(mine),), t, dtype=torch.float32, device=self.device) for _, _, t in trig
             ])
-            res = [a.cpu().numpy() for a in extract_triggers_batched(flat, thr_rows, max_picks=max_picks)]
+            res = extract_triggers_batched(flat, thr_rows, max_picks=max_picks)
+            # rows (label, station): gathered along the station axis
+            res = [self._gather_stations(a.reshape(len(trig), len(mine), -1), 1).reshape(len(trig) * s, -1)
+                   .cpu().numpy() for a in res]
         return {
             label: tuple(a[j * s : (j + 1) * s] for a in res) for j, (label, _, _) in enumerate(trig)
         }
@@ -375,10 +423,10 @@ class WaveformPicker:
         data, padded_total, starts, flush_start = self._plan_windows(data, overlap)
         with inference_work(self.device):
             curves = self._curves(
-                self._to_device(data), starts, padded_total, tuple(blinding), stacking,
+                self._to_device(self._my_stations(data)), starts, padded_total, tuple(blinding), stacking,
                 batch_size, window - overlap, flush_start,
             )
-            return curves.cpu().numpy()[..., :total]
+            return self._gather_stations(curves, 0).cpu().numpy()[..., :total]
 
     # ------------------------------------------------------------ stream level
     def _group_arrays(self, stream: Stream):

@@ -327,6 +327,17 @@ def _to_device(batch: Optional[Dict], device) -> Optional[Dict[str, torch.Tensor
             for k, v in batch.items()}
 
 
+def _rows(tree, lo: int, hi: int):
+    """Rows [lo, hi) of every array in a tuple / dict tree (None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return tuple(_rows(t, lo, hi) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
 class TrainGenerator:
     """Epoch iterator: shuffled primary batches + random secondary/noise draws,
     augmented on `device` (the card unless ``device="cpu"``). Yields
@@ -476,7 +487,14 @@ class TrainGenerator:
                 noi2 = host_window_crop(self.rng, noi2, self.cfg)
         return tuple(_to_device(r, dev) for r in (prim, sec, sec2, noi, noi2))
 
-    def epoch(self) -> Iterator[Dict[str, torch.Tensor]]:
+    def epoch(self, shard: Optional[Tuple[int, int]] = None) -> Iterator[Dict[str, torch.Tensor]]:
+        """One epoch's augmented batches. With ``shard=(rank, world)`` (a
+        rank of a data mesh) every batch is rank `rank`'s block of
+        ``batch_size // world`` rows of the global batch: each rank makes the
+        same host draws and augmentation draws from the same seed as one
+        process would, and augments only its rows (every block of the
+        program works row by row), so the ranks' blocks together are that
+        process's batch."""
         n = len(self.primary)
         order = self.rng.permutation(n)
         steps = len(self)
@@ -486,11 +504,19 @@ class TrainGenerator:
             if (self.host_window or device_on)
             else self.cfg
         )
+        if shard is not None:
+            rank, world = shard
+            if self.batch_size % world:
+                raise ValueError(f"batch size {self.batch_size} does not divide over {world} ranks")
+            rows = self.batch_size // world
+            lo, hi = rank * rows, (rank + 1) * rows
 
         def make(i):
             raw = self.raw_batches(order, i, device_on)
             draws = draw_augment(self.gen, self.batch_size, raw[0]["x"].shape[1], dev_cfg, self.device,
                                  stack=raw[1] is not None)
+            if shard is not None:
+                raw, draws = _rows(raw, lo, hi), _rows(draws, lo, hi)
             return augment_train_batch(*raw, dev_cfg, draws)
 
         # software pipeline: a producer thread assembles host batches (HDF5

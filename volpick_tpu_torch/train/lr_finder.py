@@ -3,7 +3,9 @@
 Port of ``volpick_tpu/train/lr_finder.py``. Exponential LR sweep from min_lr
 to max_lr over num_training steps of ``Trainer.train_step``; the suggested
 LR is the point of steepest smoothed-loss descent, the Lightning tuner's
-suggestion rule. The trainer's state is restored afterwards.
+suggestion rule. The trainer's state is restored afterwards. It steps
+through the trainer, so under a mesh it follows it: each rank takes its rows
+of every batch, and the losses are the global batch's.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ def lr_find(
     was_training = model.training
     lrs = np.exp(np.linspace(np.log(min_lr), np.log(max_lr), num_training))
     losses: List[float] = []
-    gen = torch.Generator(device=trainer.device).manual_seed(123)
-    it = iter(train_gen.epoch())
+    gen = trainer.dropout_generator(123)
+    it = iter(trainer.batches(train_gen))
     best = np.inf
     smoothed = None
     i = 0
@@ -47,7 +49,7 @@ def lr_find(
             try:
                 batch = next(it)
             except StopIteration:
-                it = iter(train_gen.epoch())
+                it = iter(trainer.batches(train_gen))
                 continue
             loss = float(trainer.train_step(batch, float(lrs[i]), gen))
             smoothed = loss if smoothed is None else smooth * loss + (1 - smooth) * smoothed

@@ -6,7 +6,7 @@ best one is EMA-aware, reference `volpick/model/utils.py:190-245`).
 ``export_pretrained`` writes the JAX package's native pair
 (`<name>.json.v1` + `<name>.npz.v1`, JAX tree keys), which the JAX
 ``load_pretrained_npz`` and the port's ``from_pretrained`` /
-``models/convert.py::load_npz_v1`` both read: weights go both ways.
+``load_pretrained_npz`` both read: weights go both ways.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from volpick_tpu_torch.device import resolve_device
-from volpick_tpu_torch.models.convert import ARCHS, _flatten, jax_tree_from_model, model_args_of
+from volpick_tpu_torch.models.convert import ARCHS, _flatten, jax_tree_from_model, load_npz_v1, model_args_of
 from volpick_tpu_torch.train.checkpoints import find_best_checkpoint, load_checkpoint
 
 
@@ -78,3 +78,12 @@ def export_pretrained(
     with open(d / f"{name}.npz.v1", "wb") as f:
         np.savez(f, **_flatten(jax_tree_from_model(model)))
     return d
+
+
+def load_pretrained_npz(json_path, npz_path) -> torch.nn.Module:
+    """Read a native pretrained pair (`<name>.json.v1` + `<name>.npz.v1`) → the
+    port's model holding its weights, on the CPU in eval mode: the JAX
+    package's function of this name, whose (model, params) pair is one object
+    here. The architecture is ``meta["architecture"]``, else sniffed from the
+    kwargs as JAX does (legacy exports carry no such field)."""
+    return load_npz_v1(json_path, npz_path)[1]

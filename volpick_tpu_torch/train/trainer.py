@@ -34,8 +34,19 @@ launches none of the CUDA kernels (the EQT family's train forward is the
 per-branch program, TPUPickNet's takes "xla"); validation takes the model's
 eval route, on the EQT family the LSTM kernel.
 
-Not ported: the JAX trainer's ``Mesh`` (one device here; DDP waits for a
-later slice).
+Data parallel (``mesh=``, the JAX trainer's argument): one process a rank,
+each holding the replicated model on ``mesh.device``. A step takes the rank's
+rows of the global batch (``TrainGenerator.epoch(shard=)``,
+``parallel.mesh.shard_batch``); in its forward and backward BatchNorm
+normalises by the global batch's statistics (``parallel.mesh.global_batch_norm``
+puts a ``GlobalBatchNorm1d`` in the place of each ``nn.BatchNorm1d`` for the
+step only), dropout keeps the rank's
+rows of masks drawn at the global shape (``models.layers.RankRows``), and the
+gradients and the loss are averaged over the ranks in one all-reduce, so
+every rank takes the step one process would take on the whole batch and the
+ranks' parameters stay equal. Adam, EMA, SWA, plateau and early stopping run
+alike on every rank; only rank 0 writes the CSV, TensorBoard and checkpoint
+files.
 """
 
 from __future__ import annotations
@@ -44,17 +55,23 @@ import copy
 import gc
 import json
 import logging
+import contextlib
 import math
+import os
 import time
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from volpick_tpu_torch.device import resolve_device
 from volpick_tpu_torch.models.convert import ARCHS
 from volpick_tpu_torch.models.eqtransformer import EQTransformer, VolEQTransformer
+from volpick_tpu_torch.models.layers import RankRows
+from volpick_tpu_torch.parallel.mesh import (
+    data_shard, global_batch_norm, initialize_distributed, make_mesh, mesh_device)
 from volpick_tpu_torch.pipeline.augmentations import AugmentConfig
 from volpick_tpu_torch.pipeline.generator import TrainGenerator
 from volpick_tpu_torch.train.checkpoints import CheckpointManager, CSVMetricsLogger, load_checkpoint
@@ -107,7 +124,16 @@ def make_augment_config(model, model_args: Dict, stack: bool) -> AugmentConfig:
 
 class Trainer:
     """Trains `model` (an nn.Module of the port, which holds its parameters)
-    on `device`: the card unless ``device="cpu"``."""
+    on `device`: the card unless ``device="cpu"``.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) trains data parallel over its
+    "data" axis on ``mesh.device``; ``None`` is the world's data mesh when a
+    process group is initialised (as JAX's default is every device of the
+    job) and the one device otherwise. Under a mesh ``train_step``,
+    ``gradients`` and ``eval_step`` take this rank's rows of a global batch
+    and return the global batch's loss; the model's BatchNorm modules take
+    the global batch's statistics inside a step and are the caller's plain
+    ones outside it."""
 
     def __init__(
         self,
@@ -123,8 +149,17 @@ class Trainer:
         monitor: str = "val_loss",
         seed: int = 42,
         device=None,
+        mesh=None,
     ):
+        if mesh is None and dist.is_available() and dist.is_initialized():
+            mesh = make_mesh(device=device)
+        if mesh is not None:
+            device = mesh_device(mesh, device, "Trainer")
         self.device = resolve_device(device, "Trainer")
+        self.mesh = mesh
+        # (rank on the data axis, its size) under a mesh, else None
+        self.shard = data_shard(mesh) if mesh is not None else None
+        self._group = mesh.get_group("data") if mesh is not None else None
         self.model = model.to(self.device)
         self.lr = lr
         self.loss_weights = tuple(loss_weights)
@@ -222,16 +257,38 @@ class Trainer:
                                 batch["y"][:, 1], self.loss_weights)
         return vector_cross_entropy(model(x), batch["y"])
 
+    def _mean_over_ranks(self, tensors) -> None:
+        """Replace each tensor by its mean over the data axis' ranks, in one
+        all-reduce of their concatenation."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self._group)
+        flat /= self.shard[1]
+        off = 0
+        for t in tensors:
+            t.copy_(flat[off : off + t.numel()].view_as(t))
+            off += t.numel()
+
     def gradients(self, batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Train-mode loss of `batch` with every parameter's ``.grad`` set
-        (BatchNorm running statistics updated as in a step); no update."""
+        (BatchNorm running statistics updated as in a step); no update. Under
+        a mesh the loss and the gradients are the global batch's."""
         self.model.train()
-        for p in self.model.parameters():
+        params = list(self.model.parameters())
+        for p in params:
             p.grad = None
-        loss = self._loss(self.model, batch, generator)
-        loss.backward()
-        return loss.detach()
+        with global_batch_norm(self.model, self._group) if self.mesh is not None else contextlib.nullcontext():
+            loss = self._loss(self.model, batch, generator)
+            loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            loss = loss.reshape(1).clone()
+            self._mean_over_ranks([p.grad for p in params] + [loss])
+            loss = loss[0]
+        return loss
 
     @torch.no_grad()
     def apply_gradients(self, lr: float) -> None:
@@ -273,7 +330,22 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self._loss(self.eval_model(), batch)
+        loss = self._loss(self.eval_model(), batch)
+        if self.mesh is not None:
+            loss = loss.reshape(1).clone()
+            self._mean_over_ranks([loss])
+            loss = loss[0]
+        return loss
+
+    def batches(self, gen: TrainGenerator):
+        """An epoch of `gen`: under a mesh, this rank's rows of each batch."""
+        return gen.epoch() if self.shard is None else gen.epoch(shard=self.shard)
+
+    def dropout_generator(self, seed: int):
+        """The dropout masks' generator on the trainer's device, seeded
+        `seed`; under a mesh wrapped in ``RankRows`` for this rank."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return gen if self.shard is None else RankRows(gen, *self.shard)
 
     # -------------------------------------------------------------------- fit
     def fit(
@@ -292,18 +364,19 @@ class Trainer:
     ) -> Dict:
         monitor = self.monitor if dev_gen is not None else "train_loss"
         exp_dir = Path(save_dir or "weights") / experiment
-        csvlog = CSVMetricsLogger(exp_dir, hparams=hparams or {})
+        # under a mesh only rank 0 writes files; every rank computes alike
+        writer = self.mesh is None or dist.get_rank() == 0
+        csvlog = CSVMetricsLogger(exp_dir, hparams=hparams or {}) if writer else None
         # CSV and TensorBoard side by side, like the reference
         # (`volpick/model/train.py:122-130`; TB skipped for test runs there)
-        tblog = TensorBoardLogger(exp_dir / "tensorboard") if tensorboard else None
-        ckpt = CheckpointManager(exp_dir / "checkpoints", monitor=monitor, save_ema=self.ema)
-        if self._restored_best is not None:
+        tblog = TensorBoardLogger(exp_dir / "tensorboard") if tensorboard and writer else None
+        ckpt = CheckpointManager(exp_dir / "checkpoints", monitor=monitor, save_ema=self.ema) if writer else None
+        if self._restored_best is not None and writer:
             ckpt.best = self._restored_best
         stopper = EarlyStopper(patience=100) if early_stop else None
         # dropout stream folded with the resumed epoch, so that a resumed run
         # does not replay the pre-restart epochs' masks
-        dropout_gen = torch.Generator(device=self.device).manual_seed(
-            (self.seed + 1) * 1_000_003 + self.start_epoch)
+        dropout_gen = self.dropout_generator((self.seed + 1) * 1_000_003 + self.start_epoch)
 
         plateau_scale = self.plateau.lr if self.plateau is not None else 1.0
         t_start = time.perf_counter()
@@ -323,14 +396,14 @@ class Trainer:
         for epoch in range(self.start_epoch, max_epochs):
             # --- train
             losses = []
-            for batch in train_gen.epoch():
+            for batch in self.batches(train_gen):
                 lr = self.lr * warmup_scale(self.step, self.warmup_steps) * plateau_scale
                 if self.swa and epoch >= swa_start_epoch and swa_lr_cfg is not None:
                     lr = float(swa_lr_cfg)
                 loss = self.train_step(batch, lr, dropout_gen)
                 self.step += 1
                 losses.append(loss)  # device scalar; synchronised once an epoch
-                if checkpoint_every_n_steps and self.step % checkpoint_every_n_steps == 0:
+                if writer and checkpoint_every_n_steps and self.step % checkpoint_every_n_steps == 0:
                     ckpt.update(self._state(epoch), {monitor: float(loss)}, epoch, self.step)
             train_loss = float(np.mean(torch.stack(losses).cpu().numpy())) if losses else math.nan
 
@@ -350,7 +423,7 @@ class Trainer:
                 or epoch == max_epochs - 1
             val_loss = math.nan
             if dev_gen is not None and run_val:
-                vlosses = [float(self.eval_step(b)) for b in dev_gen.epoch()]
+                vlosses = [float(self.eval_step(b)) for b in self.batches(dev_gen)]
                 val_loss = float(np.mean(vlosses)) if vlosses else math.nan
 
             metrics = {
@@ -362,7 +435,8 @@ class Trainer:
                 "lr": self.lr * warmup_scale(self.step, self.warmup_steps) * plateau_scale,
                 "time_s": time.perf_counter() - t_start,
             }
-            csvlog.log(metrics)
+            if writer:
+                csvlog.log(metrics)
             if tblog is not None:
                 tblog.log_scalars(metrics, self.step)
                 tblog.flush()
@@ -373,7 +447,8 @@ class Trainer:
             gc.collect()
 
             monitored = metrics[monitor]
-            ckpt.update(self._state(epoch), metrics, epoch, self.step)
+            if writer:
+                ckpt.update(self._state(epoch), metrics, epoch, self.step)
             if self.plateau is not None and not math.isnan(monitored):
                 plateau_scale = self.plateau.step(monitored)
             if stopper is not None and not math.isnan(monitored) and stopper.step(monitored):
@@ -383,9 +458,17 @@ class Trainer:
         self.model.train()
         if tblog is not None:
             tblog.close()
-        with open(exp_dir / "running_time.txt", "w") as f:
-            f.write(str(time.perf_counter() - t_start))
-        return {"history": history, "best_checkpoint": str(ckpt.best_path), "exp_dir": str(exp_dir)}
+        best = None
+        if writer:
+            with open(exp_dir / "running_time.txt", "w") as f:
+                f.write(str(time.perf_counter() - t_start))
+            best = str(ckpt.best_path)
+        if self.mesh is not None:
+            # rank 0 has written every file when the others learn the path
+            box = [best]
+            dist.broadcast_object_list(box, src=0)
+            best = box[0]
+        return {"history": history, "best_checkpoint": best, "exp_dir": str(exp_dir)}
 
     def _state(self, epoch: int) -> Dict:
         # CheckpointManager.update stamps `best_monitor` on top before writing
@@ -524,8 +607,9 @@ def prepare_data(config: Dict, model, test_run: bool = False, cfg: Optional[Augm
 
 def train(config: Dict, experiment_name: str = "exp", test_run: bool = False, device=None) -> Dict:
     """The `train.py --config` entry point (reference `train.py:63-222`) on
-    `device`: the card unless ``device="cpu"``."""
-    device = resolve_device(device, "train")
+    `device`: the card unless ``device="cpu"``. In an initialised process
+    group it trains data parallel on the world's mesh (the ``Trainer``'s
+    default), this rank on ``cuda:$LOCAL_RANK`` unless `device` names one."""
     model_args = dict(config.get("model_args", {}))
     model_name = config["model"].lower()
     arch_args = {k: v for k, v in model_args.items() if k not in _LIT_ONLY_ARGS}
@@ -557,7 +641,7 @@ def train(config: Dict, experiment_name: str = "exp", test_run: bool = False, de
         if ckpt.exists():
             trainer.restore(ckpt)
             logger.info(f"resumed from {ckpt} at step {trainer.step}")
-    train_gen, dev_gen = prepare_data(config, model, test_run, device=device)
+    train_gen, dev_gen = prepare_data(config, model, test_run, device=trainer.device)
     if config.get("whole_dataset"):
         dev_gen = None
     return trainer.fit(
@@ -588,6 +672,12 @@ def main(argv=None):
     ap.add_argument("--fraction", type=float, default=None)
     ap.add_argument("--device", default=None, help='"cuda" (the default) or "cpu"')
     args = ap.parse_args(argv)
+    # under torchrun (WORLD_SIZE > 1) each rank joins the world: NCCL on the
+    # card, gloo when the CPU is asked for
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not dist.is_initialized():
+        initialize_distributed(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}", world,
+                               int(os.environ["RANK"]), backend="gloo" if args.device == "cpu" else None)
     with open(args.config) as f:
         config = json.load(f)
     if args.whole_dataset:
