@@ -1,9 +1,13 @@
-"""Where the time of K7 (``volpick_tpu_torch/csrc/mha.cu``) goes, on a CUDA GPU.
+"""Where the time of K7's float32 body (``volpick_tpu_torch/csrc/mha.cu``,
+``mha_kernel``) goes, on a CUDA GPU.
 
     python3 scripts/k7_phases.py
 
-The machine has no kernel profiler that sees inside a launch, so the kernel
-is built several times with one phase compiled out (``-DMHA_SKIP=<bits>``: 1
+It times the float32 entries only: ``-DMHA_SKIP`` compiles phases out of the
+float32 body, not of the bf16 tensor-core body (``mha_kernel_bf16``), whose
+time ``chip_smoke.py`` phase 3 reads from its profiler row. The machine has
+no kernel profiler that sees inside a launch, so the kernel is built several
+times with one phase compiled out (``-DMHA_SKIP=<bits>``: 1
 QK^T, 2 softmax, 4 PV; such a build computes nothing right) and each build is
 timed with CUDA events on TPUPickNet's batch-128 step, B 128, H 4, Dh 32,
 T 94, in both layouts. What a phase costs is the full kernel's time less the

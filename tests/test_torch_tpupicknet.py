@@ -82,6 +82,33 @@ def test_mha_qkv_twin_matches_head_major_twin_and_pallas(b, t, h, dh):
     np.testing.assert_allclose(got, want.transpose(0, 2, 1), atol=MHA_ATOL)
 
 
+def _within_one_bf16_ulp(got, want):
+    d = np.abs(got - want)
+    over = d > 2.0 ** -7 * np.abs(want) + 1e-6
+    assert not over.any(), f"{int(over.sum())} of {d.size} beyond one bf16 ulp, largest |d| {d.max():.3e}"
+
+
+@pytest.mark.parametrize("b,t,h,dh", [(4, 94, 4, 32), (2, 127, 2, 32)])
+def test_bf16_twins_match_pallas_kernel_on_the_models_scaled_q(b, t, h, dh):
+    """bf16 ``mha_qkv`` (its twin here) against the Pallas kernel fed q as the
+    JAX model feeds it: ``to_pk(q) * scale`` on a bf16 array rounds the weakly
+    typed scale to bf16 and the product to bf16 again. bf16 ``mha`` on that
+    same q against the kernel too. One bf16 ulp everywhere (|d| <= 2^-7
+    |want| + 1e-6)."""
+    qkv = (np.random.default_rng(0).normal(size=(b, t, 3, h, dh)) * 2).astype(np.float32)
+    scale = float(1.0 / np.sqrt(dh))
+    qkv16 = jnp.asarray(qkv, dtype=jnp.bfloat16)
+    to_pk = lambda a: a.transpose(0, 2, 3, 1).reshape(b, h * dh, t)  # noqa: E731
+    q, k, v = to_pk(qkv16[:, :, 0]) * scale, to_pk(qkv16[:, :, 1]), to_pk(qkv16[:, :, 2])
+    assert q.dtype == jnp.bfloat16
+    want = np.asarray(mha_pallas(q, k, v, h, interpret=True).astype(jnp.float32))
+    got = cuda_attn.mha_qkv(torch.as_tensor(qkv).to(torch.bfloat16), scale)
+    assert got.dtype == torch.bfloat16
+    _within_one_bf16_ulp(got.float().numpy(), want.transpose(0, 2, 1))
+    packed = [torch.as_tensor(np.array(a.astype(jnp.float32))).to(torch.bfloat16) for a in (q, k, v)]
+    _within_one_bf16_ulp(cuda_attn.mha(*packed, h).float().numpy(), want)
+
+
 def test_attention_hands_the_kernel_entry_the_projection_itself(small, monkeypatch):
     """Under "pallas" no packing copy, scale pass or transpose stands between
     the block's projection and K7's entry: ``_attention`` passes its argument

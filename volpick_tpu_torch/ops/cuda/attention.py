@@ -1,28 +1,34 @@
 """Softmax multi-head self-attention: the CUDA kernel ``csrc/mha.cu`` and its
 plain PyTorch twins.
 
-Port of ``volpick_tpu/ops/pallas/attention.py::mha_pallas``, in two layouts
-served by one kernel body:
+Port of ``volpick_tpu/ops/pallas/attention.py::mha_pallas``, in two layouts:
 
 - ``mha(q, k, v, n_heads)`` keeps the JAX package's contract: q, k, v are
   (B, H·Dh, T), packed head-major, with any query scaling already folded
   into q; the output has the shape and type of q.
 - ``mha_qkv(qkv, scale)`` reads q, k, v in place from a model's projection
-  (B, T, 3, H, Dh), multiplies ``scale`` into q inside the kernel (the same
-  single float32 multiply as ``q * scale``) and returns (B, T, H·Dh): no
-  packing copy, no scale pass and no transpose around the launch.
+  (B, T, 3, H, Dh), multiplies ``scale`` into q inside the kernel and returns
+  (B, T, H·Dh): no packing copy, no scale pass and no transpose around the
+  launch.
 
 Per window b and head h the output is ``softmax_s(q_hᵀ k_h) v_h``: the row
 max is subtracted, and the exponentials are divided by their plain sum (no
 eps). Each entry takes its twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no other route.
 
-Both entries take float32 or bfloat16. On bf16 the kernel computes the
-logits, the softmax and both products in float32 from the bf16 values (the
-scale of ``mha_qkv`` too), rounds the probabilities to bf16 before the value
-product, as the Pallas kernel casts them to ``v.dtype``, and writes bf16; the
-twins do the same arithmetic. There is no route that casts bf16 up and calls
-the float32 entry.
+Both entries take float32 or bfloat16, with a kernel body each. On float32,
+``mha_qkv`` scales q by the same single float32 multiply as ``q * scale``.
+On bf16 the kernel multiplies bf16 q and k on the tensor cores with float32
+sums, takes the softmax in float32, rounds the probabilities to bf16 (the
+Pallas kernel casts them to ``v.dtype``), multiplies them by bf16 v with
+float32 sums and writes bf16; the twins do the same arithmetic in another
+order. The bf16 ``mha_qkv`` scales q as the JAX model hands it to the
+Pallas kernel: ``to_pk(q) * scale`` there multiplies a bf16 array by a
+Python float, which JAX types weakly, so the scale itself is first rounded
+to bf16 and the product is rounded to bf16 again: q' = bf16(q · bf16(scale)),
+the multiply in float32 (exact for two bf16 values) and both roundings to
+nearest even. There is no route that casts bf16 up and calls the float32
+entry.
 """
 
 from __future__ import annotations
@@ -62,13 +68,16 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: in
 
 def mha_qkv_reference(qkv: torch.Tensor, scale: float) -> torch.Tensor:
     """Plain PyTorch twin of ``mha_qkv``, on any device; bf16 as the module's
-    note says (q scaled in float32)."""
+    note says (q scaled and rounded to bf16 first)."""
     dtype = qkv.dtype
-    if dtype == torch.bfloat16:
-        qkv = qkv.float()
     b, t, _, h, dh = qkv.shape
     q, k, v = qkv.unbind(2)
-    p = _softmax_rows(torch.einsum("bthd,bshd->bhts", q * scale, k), dtype)
+    if dtype == torch.bfloat16:
+        s = torch.tensor(scale).to(torch.bfloat16).float()  # bf16(q · bf16(scale))
+        q, k, v = (q.float() * s).to(torch.bfloat16).float(), k.float(), v.float()
+    else:
+        q = q * scale
+    p = _softmax_rows(torch.einsum("bthd,bshd->bhts", q, k), dtype)
     return torch.einsum("bhts,bshd->bthd", p, v).reshape(b, t, h * dh).to(dtype)
 
 
