@@ -11,6 +11,17 @@ same arithmetic, sums in another order). The kernel's tanh,
 NaN where exp overflows or vanishes, at most 5e-7 off. A small EQTransformer under
 ``fused="plstm+bandattn+pattn"`` is held against the JAX ``apply`` with the
 same flag and converted weights at 2e-4 (the EQT forward pin).
+
+In bf16 the twin rounds at JAX's points for q, k, q + k and tanh and keeps
+the probabilities float32 (``ops/cuda/addattn.py`` says why); it is not the
+Pallas kernel's bf16 arithmetic, whose XLA-CPU rounding the port does not
+restate, so it is held by the repo's bf16 rule: within 2^-7 of the largest
+|out| of JAX's bf16 kernel, and no farther from JAX's float32 kernel than
+JAX's bf16 kernel is, in max and in mean |d| (measured: 3.91e-3 against a
+4.76e-3 limit and 2.70e-3 / 4.36e-4 against 4.11e-3 / 6.01e-4 at scale 0.3;
+3.91e-3 against 6.23e-3 and 1.00e-2 / 1.09e-3 against 1.00e-2 / 1.22e-3 at
+scale 6, where the largest errors of both lie on an element whose input
+rounding dominates).
 """
 
 import jax
@@ -95,6 +106,26 @@ def test_addattn_x_twin_matches_pallas_and_layers(b, c, t, u, scale):
     xt = tx.transpose(1, 2)
     old = addattn.addattn(tx, (xt @ wt + bh).contiguous(), (xt @ wx).contiguous(), wa).numpy()
     np.testing.assert_allclose(got, old, atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("b,c,t,u,scale", [(16, 16, 47, 32, 0.3), (9, 16, 47, 32, 6.0)])
+def test_bf16_twin_against_jax_bf16_and_float32(b, c, t, u, scale):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(b, c, t)).astype(np.float32)
+    p = _params(rng, c, u, scale)
+    jax16 = np.asarray(seq_self_attention_pallas(
+        jnp.asarray(x, jnp.bfloat16), {k: jnp.asarray(v, jnp.bfloat16) for k, v in p.items()},
+        interpret=True).astype(jnp.float32))
+    jax32 = np.asarray(seq_self_attention_pallas(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, interpret=True))
+    got = addattn.seq_self_attention(torch.as_tensor(x).to(torch.bfloat16),
+                                     {k: torch.as_tensor(v).to(torch.bfloat16) for k, v in p.items()})
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert np.abs(got - jax16).max() <= 2.0 ** -7 * np.abs(jax16).max()
+    jax_err, port_err = np.abs(jax16 - jax32), np.abs(got - jax32)
+    assert port_err.max() <= jax_err.max()
+    assert port_err.mean() <= jax_err.mean()
 
 
 @pytest.mark.parametrize("form", ["exp", "exp2"])

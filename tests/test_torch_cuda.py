@@ -9,11 +9,14 @@ entries) and additive attention (both entries) 1e-5 (the tests/test_pallas.py pi
 order on the card); a train step on the card against the CPU port in
 float64: loss 1e-10 relative, gradients 1e-6 of each tensor's largest
 entry, parameters and EMA after the step 1e-9 (the same pins hold a step of a
-world of one NCCL rank to the plain step). The bfloat16 entries of the
-LSTM and additive attention kernels against their bf16 twins: one bf16
-ulp, |Δ| <= 2^-7 |twin| + 1e-6 (the twins do the kernels' float32
-arithmetic in another order; a sum that lands near a rounding boundary may
-round to the neighbouring bf16 value). The MHA kernel's bf16 body sums its
+world of one NCCL rank to the plain step). The bfloat16 bodies against
+their bf16 twins, each by the rule chip_smoke.py states: the LSTM's within
+2^-7 |twin| + 2^-9 (it sums the projection on the tensor cores, the twin in
+another order, so a gate input can round to the neighbouring bf16 value);
+the additive attention's within one bf16 ulp, |Δ| <= 2^-7 |twin| + 1e-6 (it
+rounds where the twin rounds, its tanh correctly rounded; the sums run in
+another order, so a result near a rounding boundary may round to the
+neighbouring bf16 value). The MHA kernel's bf16 body sums its
 logits on the tensor cores, where one probability's bf16 rounding can flip
 and move an output near zero by up to 2^-8 of the largest |v| of its window
 and head: |Δ| <= 2^-7 |twin| + 2^-8 max|v|.
@@ -584,6 +587,10 @@ def test_addattn_refusals(dev):
     for c, t, u, g, project in ((16, 47, 32, 2, 1), (16, 47, 32, 1, 0), (3, 5, 7, 4, 1),
                                 (5, 9, 40, 2, 0), (16, 128, 32, 1, 1)):
         assert smem(c, t, u, g, project) == cuda_addattn._smem_bytes(c, t, u, g, bool(project))
+    smem16 = _build.function("addattn_bf16_smem_bytes", [ctypes.c_int] * 5)
+    for c, t, u, g, project in ((16, 47, 32, 2, 1), (16, 47, 32, 1, 0), (3, 5, 7, 4, 1),
+                                (5, 9, 20, 2, 0), (16, 128, 32, 1, 1), (12, 33, 16, 3, 1)):
+        assert smem16(c, t, u, g, project) == cuda_addattn._smem_bytes_bf16(c, t, u, g, bool(project))
 
 
 # ---- res_cnn_stack (K6)
@@ -887,25 +894,41 @@ def test_eval_sweep_on_the_card_equals_the_per_threshold_path(dev, tmp_path):
 BF16 = torch.bfloat16
 
 
-def _one_ulp(got: torch.Tensor, want: torch.Tensor) -> None:
-    """bf16 outputs within one bf16 ulp of the twin's."""
+def _bf16_close(got: torch.Tensor, want: torch.Tensor, extra) -> None:
+    """bf16 outputs within 2^-7 |twin| + `extra` of the twin's."""
     assert got.dtype == want.dtype == BF16 and got.shape == want.shape
     d = (got.float() - want.float()).abs()
-    tol = 2.0 ** -7 * want.float().abs() + 1e-6
+    tol = 2.0 ** -7 * want.float().abs() + extra
+    assert bool(torch.isfinite(got.float()).all())
     assert bool((d <= tol).all()), float((d - tol).max())
 
 
 @pytest.mark.parametrize("b,c,h,t", [(232, 64, 16, 47), (232, 16, 16, 47), (7, 16, 8, 5), (33, 12, 32, 60)])
 def test_lstm_bf16_entries_match_twins(dev, b, c, h, t):
+    """The fused bf16 body, one launch a call in both forms, and under the
+    profiler ten rows of that one kernel for ten calls of lstm_branches (no
+    gemm beside them)."""
     rng = np.random.default_rng(b + c)
     x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev).to(BF16)
     w = [a.to(BF16) for a in _lstm_args(dev, rng, 2, c, h)]
-    before = cuda_lstm.launches
+    before = (cuda_lstm.launches, cuda_lstm.bf16_launches)
     got = cuda_lstm.lstm_branches(x, *w, reverse=(False, True))
-    assert cuda_lstm.launches == before + 1
-    _one_ulp(got, cuda_lstm.lstm_branches_reference(x, *w, reverse=(False, True)))
+    assert (cuda_lstm.launches, cuda_lstm.bf16_launches) == (before[0] + 1, before[1] + 1)
+    _bf16_close(got, cuda_lstm.lstm_branches_reference(x, *w, reverse=(False, True)), 2.0 ** -9)
     xs = torch.stack([x, x.flip(-1)])
-    _one_ulp(cuda_lstm.lstm_multi(xs, *w), cuda_lstm.lstm_multi_reference(xs, *w))
+    _bf16_close(cuda_lstm.lstm_multi(xs, *w), cuda_lstm.lstm_multi_reference(xs, *w), 2.0 ** -9)
+    assert (cuda_lstm.launches, cuda_lstm.bf16_launches) == (before[0] + 2, before[1] + 2)
+    from volpick_tpu_torch.picker.stage_times import profiled
+
+    # a profiler session that records no device row at all measured nothing
+    # (a process's first one has come back so on an H100): it is run again
+    for _ in range(3):
+        events = profiled(lambda: [cuda_lstm.lstm_branches(x, *w, reverse=(False, True)) for _ in range(10)])[2]
+        kernels = {e.key: e.count for e in events if str(e.device_type).endswith("CUDA")}
+        if kernels:
+            break
+    assert len(kernels) == 1 and "lstm_multi_kernel_bf16" in next(iter(kernels)), kernels
+    assert sum(kernels.values()) == 10
 
 
 @pytest.mark.parametrize("b,t", [(232, 47), (1, 47), (3, 5), (256, 47)])
@@ -917,24 +940,30 @@ def test_addattn_bf16_entries_match_twins(dev, b, t):
     bh, wa = (torch.as_tensor(rng.normal(size=32).astype(np.float32) * 0.3, device=dev).to(BF16)
               for _ in range(2))
     before = cuda_addattn.launches
-    _one_ulp(cuda_addattn.addattn_x(x, wt, bh, wx, wa), cuda_addattn.addattn_x_reference(x, wt, bh, wx, wa))
-    xt = x.float().transpose(1, 2)
-    q = (xt @ wt.float() + bh.float()).to(BF16).contiguous()
-    k = (xt @ wx.float()).to(BF16).contiguous()
-    _one_ulp(cuda_addattn.addattn(x, q, k, wa), cuda_addattn.addattn_reference(x, q, k, wa))
+    _bf16_close(cuda_addattn.addattn_x(x, wt, bh, wx, wa), cuda_addattn.addattn_x_reference(x, wt, bh, wx, wa),
+                1e-6)
+    xt = x.transpose(1, 2)
+    q = (xt @ wt + bh).contiguous()
+    k = (xt @ wx).contiguous()
+    _bf16_close(cuda_addattn.addattn(x, q, k, wa), cuda_addattn.addattn_reference(x, q, k, wa), 1e-6)
     assert cuda_addattn.launches == before + 2
 
 
-def _mha_bf16_close(got: torch.Tensor, want: torch.Tensor, v_max: torch.Tensor) -> None:
-    """K7's bf16 outputs within 2^-7 |twin| + 2^-8 v_max of the twin's, v_max
-    the largest |v| of the element's window and head: the tensor cores sum
-    the logits in another order than the twin, which can flip the bf16
-    rounding of one probability."""
-    assert got.dtype == want.dtype == BF16 and got.shape == want.shape
-    d = (got.float() - want.float()).abs()
-    tol = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * v_max
-    assert bool(torch.isfinite(got.float()).all())
-    assert bool((d <= tol).all()), float((d - tol).max())
+@pytest.mark.parametrize("b,c,t,u", [(5, 8, 12, 16), (9, 12, 33, 20)])
+def test_addattn_bf16_body_at_other_widths(dev, b, c, t, u):
+    """Channels not a multiple of 16 and units padded to 16 or 32; U above
+    32 is refused (the body keeps a row of q in registers)."""
+    rng = np.random.default_rng(b + c + t + u)
+    x = torch.as_tensor(rng.normal(size=(b, c, t)).astype(np.float32), device=dev).to(BF16)
+    wt, wx = (torch.as_tensor(rng.normal(size=(c, u)).astype(np.float32) * 0.3, device=dev).to(BF16)
+              for _ in range(2))
+    bh, wa = (torch.as_tensor(rng.normal(size=u).astype(np.float32) * 0.3, device=dev).to(BF16)
+              for _ in range(2))
+    _bf16_close(cuda_addattn.addattn_x(x, wt, bh, wx, wa), cuda_addattn.addattn_x_reference(x, wt, bh, wx, wa),
+                1e-6)
+    wide = torch.zeros(c, 33, device=dev, dtype=BF16)
+    with pytest.raises(ValueError, match="U <= 32"):
+        cuda_addattn.addattn_x(x, wide, wide[0], wide, wide[0])
 
 
 @pytest.mark.parametrize("b,t,dh", [(128, 94, 32), (3, 5, 8), (5, 127, 16), (2, 40, 6), (128, 128, 32)])
@@ -949,11 +978,11 @@ def test_mha_bf16_entries_match_twins(dev, b, t, dh):
     before = (cuda_attn.launches, cuda_attn.bf16_launches)
     got = cuda_attn.mha_qkv(qkv, dh ** -0.5)
     assert (cuda_attn.launches, cuda_attn.bf16_launches) == (before[0] + 1, before[1] + 1)
-    _mha_bf16_close(got, cuda_attn.mha_qkv_reference(qkv, dh ** -0.5), v_max[:, None, :])
+    _bf16_close(got, cuda_attn.mha_qkv_reference(qkv, dh ** -0.5), 2.0 ** -8 * v_max[:, None, :])
     q, k, v = _head_major(qkv, 1.0)
     got_hm = cuda_attn.mha(q, k, v, 4)
     assert (cuda_attn.launches, cuda_attn.bf16_launches) == (before[0] + 2, before[1] + 2)
-    _mha_bf16_close(got_hm, cuda_attn.mha_reference(q, k, v, 4), v_max[:, :, None])
+    _bf16_close(got_hm, cuda_attn.mha_reference(q, k, v, 4), 2.0 ** -8 * v_max[:, :, None])
     got32 = cuda_attn.mha_qkv(qkv32, dh ** -0.5)
     assert (got32 - cuda_attn.mha_qkv_reference(qkv32, dh ** -0.5)).abs().max().item() <= 1e-5
     q, k, v = _head_major(qkv32, dh ** -0.5)

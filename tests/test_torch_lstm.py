@@ -7,15 +7,32 @@ Pallas kernel ``lstm_multi_pallas`` in interpret mode; the unit-major row
 permutation of W_ih, which only the CUDA route applies, is held exactly
 against the unpermuted projection. Tolerance: 1e-5 absolute, the LSTM
 pin of tests/test_pallas.py (float32 sums in another order).
+
+The bf16 twins are held against JAX's own kernel body (``_kernel`` and
+``_pack_whh`` through ``pl.pallas_call`` in interpret mode) fed the
+projection as ``lstm_multi_pallas`` forms it in bf16, bf16(bf16(x . W_ih) +
+b): within one bf16 ulp (|d| <= 2^-7 |want| + 1e-6) everywhere at C 64 and
+C 16. ``lstm_multi_pallas`` itself cannot run on bf16 operands: its kernel
+stores a float32 h into the bf16 output (a fault of the reference package),
+so the test restates its projection and gives ``pallas_call`` a float32
+output, cast to bf16 after, the evident meaning of the kernel. Where XLA's
+einsum and PyTorch's matmul round a projection sum differently (here 8 and 4
+of 144,384 gate inputs are off the correctly rounded product), a state can
+lie two ulps away: with both branches reading x and the second reversed,
+one element of 36,096 at C 64 does. So the bidirectional form is held as
+what it is, the stacked lstm_multi twin on the flipped input, bit for bit.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from volpick_tpu.models import layers as jlayers
-from volpick_tpu.ops.pallas.lstm import lstm_multi_pallas
+from volpick_tpu.ops.pallas.lstm import _kernel, _pack_whh, lstm_multi_pallas
 from volpick_tpu_torch.models import layers as tlayers
 from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
 
@@ -150,3 +167,65 @@ def test_wrapper_rejects_bad_input(rng):
         cuda_lstm.lstm_branches(xs, w_ih, w_hh, bias, reverse=(False, True))  # x is not (B, C, T)
     with pytest.raises(TypeError):
         cuda_lstm.lstm_branches(xs[0].double(), w_ih, w_hh, bias, reverse=(False, True))
+
+
+def _pallas_bf16(xs, w_ih, w_hh, bias):
+    """JAX's kernel body on bf16 operands: the projection restated from
+    ``lstm_multi_pallas`` (a bf16 einsum plus the bias in bf16), the output
+    float32 and cast to bf16 after (``lstm_multi_pallas`` stores float32 h
+    into a bf16 output and raises)."""
+    g, b, _, t = xs.shape
+    h = w_hh.shape[-1]
+    proj = jnp.einsum("gkc,gbct->tgkb", w_ih, xs) + bias[None, :, :, None]
+    xp = proj.reshape(t, g, 4, h, b).transpose(0, 2, 1, 3, 4).reshape(t, 4 * g * h, b)
+    out = pl.pallas_call(
+        _kernel,
+        out_shape=jax.ShapeDtypeStruct((t, g * h, b), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((g * h, b), jnp.float32), pltpu.VMEM((g * h, b), jnp.float32)],
+        interpret=True,
+    )(xp, _pack_whh(w_hh))
+    return np.asarray(out.astype(jnp.bfloat16).astype(jnp.float32)).reshape(t, g, h, b).transpose(1, 3, 2, 0)
+
+
+def _within_one_bf16_ulp(got, want):
+    d = np.abs(got - want)
+    over = d > 2.0 ** -7 * np.abs(want) + 1e-6
+    assert not over.any(), f"{int(over.sum())} of {d.size} beyond one bf16 ulp, largest |d| {d.max():.3e}"
+
+
+@pytest.mark.parametrize("c", [64, 16])
+def test_bf16_twins_match_jax_kernel(c):
+    """The bf16 twins add the bias in bf16, as JAX's projection does: within
+    one bf16 ulp of JAX's kernel (G 2, B 24, H 16, T 47, weights drawn as
+    chip_smoke.py draws them). The parent's twin added it in float32 and had
+    2,406 (C 64) / 2,512 (C 16) elements beyond."""
+    g, b, t, h = 2, 24, 47, 16
+    rng = np.random.default_rng(c)
+    xs = rng.normal(size=(g, b, c, t)).astype(np.float32)
+    w_ih = rng.uniform(-0.25, 0.25, (g, 4 * h, c)).astype(np.float32)
+    w_hh = rng.uniform(-0.25, 0.25, (g, 4 * h, h)).astype(np.float32)
+    bias = (rng.normal(size=(g, 4 * h)) * 0.1).astype(np.float32)
+    to16 = lambda a: torch.as_tensor(a).to(torch.bfloat16)  # noqa: E731
+    j16 = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    got = cuda_lstm.lstm_multi(*(to16(a) for a in (xs, w_ih, w_hh, bias)))
+    assert got.dtype == torch.bfloat16 and got.shape == (g, b, h, t)
+    _within_one_bf16_ulp(got.float().numpy(), _pallas_bf16(*(j16(a) for a in (xs, w_ih, w_hh, bias))))
+    # both branches over one x (the pick LSTMs' form)
+    x = xs[0]
+    got = cuda_lstm.lstm_branches(*(to16(a) for a in (x, w_ih, w_hh, bias)), reverse=(False, False))
+    want = _pallas_bf16(*(j16(a) for a in (np.stack([x, x]), w_ih, w_hh, bias)))
+    _within_one_bf16_ulp(got.float().numpy(), np.concatenate([want[0], want[1]], axis=1))
+    # the bidirectional form: the stacked twin on the flipped input, bit for bit
+    args = [to16(a) for a in (w_ih, w_hh, bias)]
+    hs = cuda_lstm.lstm_multi_reference(torch.stack([to16(x), to16(x).flip(-1)]), *args)
+    assert torch.equal(cuda_lstm.lstm_branches(to16(x), *args, reverse=(False, True)),
+                       torch.cat([hs[0], hs[1].flip(-1)], dim=1))
+
+
+def test_reference_kernel_refuses_bf16():
+    """``lstm_multi_pallas`` on bf16 operands raises: its kernel stores the
+    float32 h into the bf16 output. When the reference package is repaired
+    this test fails and says so."""
+    a = [jnp.zeros(shape, jnp.bfloat16) for shape in ((2, 3, 16, 5), (2, 64, 16), (2, 64, 16), (2, 64))]
+    with pytest.raises(ValueError, match="dtype"):
+        lstm_multi_pallas(*a, interpret=True)

@@ -109,6 +109,37 @@ def test_bf16_twins_match_pallas_kernel_on_the_models_scaled_q(b, t, h, dh):
     _within_one_bf16_ulp(cuda_attn.mha(*packed, h).float().numpy(), want)
 
 
+def _jax_xla_attention(qkv, scale):
+    """``volpick_tpu/models/tpupicknet.py``'s einsum route, restated."""
+    b, t, _, h, dh = qkv.shape
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    att = jnp.einsum("bthd,bshd->bhts", q, k) * scale
+    att = jax.nn.softmax(att, axis=-1)
+    return jnp.einsum("bhts,bshd->bthd", att, v).reshape(b, t, h * dh)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_xla_attention_rounds_where_jax_does(seed):
+    """The ``"xla"`` route in bf16 against JAX's, jitted as the model runs it:
+    the weakly typed scale and the product rounded to bf16, the softmax's
+    steps each rounded. At most 3% of elements beyond one bf16 ulp and no
+    element off by more than 2^-5 (the parent, which ran the softmax in
+    float32: 14.8% and 0.117 on seed 0). The float32 route is unchanged."""
+    qkv = (np.random.default_rng(seed).normal(size=(4, 94, 3, 4, 32)) * 2).astype(np.float32)
+    scale = float(1.0 / np.sqrt(32))
+    want = np.asarray(jax.jit(_jax_xla_attention, static_argnums=1)(
+        jnp.asarray(qkv, jnp.bfloat16), scale).astype(jnp.float32))
+    got = TPUPickNet._attention(None, torch.as_tensor(qkv).to(torch.bfloat16), "xla")
+    assert got.dtype == torch.bfloat16
+    d = np.abs(got.float().numpy() - want)
+    assert (d > 2.0 ** -7 * np.abs(want) + 1e-6).mean() <= 0.03
+    assert d.max() <= 2.0 ** -5
+    q, k, v = torch.as_tensor(qkv).unbind(2)
+    att = torch.softmax(torch.einsum("bthd,bshd->bhts", q, k) * scale, dim=-1)
+    assert torch.equal(TPUPickNet._attention(None, torch.as_tensor(qkv), "xla"),
+                       torch.einsum("bhts,bshd->bthd", att, v).reshape(4, 94, 128))
+
+
 def test_attention_hands_the_kernel_entry_the_projection_itself(small, monkeypatch):
     """Under "pallas" no packing copy, scale pass or transpose stands between
     the block's projection and K7's entry: ``_attention`` passes its argument

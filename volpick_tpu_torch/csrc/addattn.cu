@@ -47,13 +47,12 @@
 //   (sum + eps) comes once an output instead of once a weight. The energies'
 //   row stride T | 1 is odd, so lanes along rows never conflict.
 //
-// Two element types, one body (template parameter T): float, and bf16 for
-// the picker's bfloat16 mode, with the same launch plan and shared layout.
-// The bf16 instantiation stages x (and q, k or the weights) with plain loads
-// (8 bytes where aligned) widened to float32 on their way into the same float
-// arrays (cp.async cannot convert), computes everything in float32 as the
-// float one does, and rounds each output to bf16. The float instantiation's
-// code is the one it was.
+// This body is templated on the element type, but the package builds only
+// its float instantiations. bf16 (the picker's bfloat16 mode) has a body of
+// its own, addattn_kernel_bf16; see the note above it. The bf16
+// instantiation of this body (x, q, k or the weights widened to float32 on
+// plain loads, everything in float32, each output rounded to bf16) is the
+// earlier bf16 design, built only by scripts/k5_bf16_before.cu as a yardstick.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -450,6 +449,415 @@ int launch(const T* x, const T* qw, const T* kw, const T* bh, const T* wa,
                                        vec_rows, vec_x, eps, s);
 }
 
+// ---- bf16: addattn_kernel_bf16
+//
+// What it computes (the twins in ops/cuda/addattn.py do the same): q =
+// bf16(bf16(x^T Wt) + bh) and k = bf16(x^T Wx), as seq_self_attention_pallas
+// forms them in bf16 (addattn takes them given); z = bf16(q + k) and h =
+// bf16(tanh z), at the Pallas kernel's own rounding points; e = Wa . h and the
+// softmax in float32 (IEEE expf and division by sum + eps); the value product
+// x a with float32 sums, rounded to bf16. The probabilities are not rounded to
+// bf16 before the product as the Pallas kernel's are: rounded, they put the
+// result farther from JAX's bf16 than 2^-7 of its largest output at a scale
+// that saturates tanh (tests/test_torch_addattn.py's rule), so p goes into
+// the product as two bf16 terms, p = hi + lo, exact to 2^-16 of p.
+//
+// What bounds it on an H100: the special-function units. At the
+// EQTransformer step (B 232, T 47, U 32, C 16) it evaluates 16.4 M tanh, 4.0
+// us at one special-function operation a tanh (16 a clock an SM). Each tanh
+// is tanh.approx.f32 on the bf16 value, rounded to bf16: that is the
+// correctly rounded tanh on every finite bf16 input, so the kernel rounds
+// exactly where its twin does. tanh.approx.bf16x2 gives two a instruction
+// but issues at half the rate (8 a clock an SM), so it is no faster per
+// tanh, and it is one bf16 ulp off the correctly rounded tanh on 2,086
+// inputs; the body with it ran 1-2% faster and put 13% of the outputs
+// beyond one bf16 ulp of the twin (scripts/k2_k5_bf16_designs.py times and
+// counts both; PERF.md has the numbers). The float body's ex2 + rcp take
+// two operations a tanh.
+//
+// Design: the float body's launch plan (g windows a CTA, rows end to end, the
+// s axis of a 32-row group cut into stretches, one warp each) with bf16 tiles
+// and the products on the tensor cores:
+// - Staging: x flat and (addattn) q, k rows by 16-byte cp.async pieces where
+//   aligned, else plain loads; the weights transposed (rows u) and padded
+//   with zeros by plain loads.
+// - Projections (addattn_x): mma.sync m16n8k16, bf16 -> float32. A is x^T
+//   gathered by 2-byte loads from the flat x, B a pair of 4-byte loads from
+//   the transposed weight; a task is (window, q or k, 16 rows). q and k land
+//   in shared memory as bf16 rows of U + 8 elements.
+// - Energies: a lane owns one query row, holds it as bf16x2 registers and Wa
+//   in float32, reads k[s, :] as 16-byte broadcasts; per pair of units one
+//   add.rn.bf16x2, two tanh.approx.f32, one cvt.rn.bf16x2 and two float32
+//   FMAs.
+// - Softmax: as the float body (IEEE expf, a stretch's share of the sum);
+//   p is written split, hi and lo, as bf16 (T rows of ceil16(T) + 8).
+// - Values: out^T = p x^T on mma.sync, a task (window, 16 rows, 8 channels):
+//   A = p hi and lo by ldmatrix.x4, B = x by 2-byte loads from the flat x;
+//   the division by the row's sum + eps comes once an output, as in the float
+//   body.
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16b(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a b over a 16 x 8 tile, k = 16: bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack2(bf16 lo, bf16 hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ float lo_f(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_f(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
+
+__device__ __forceinline__ float tanh_approx(float a) {
+  float d;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(d) : "f"(a));
+  return d;
+}
+
+// bf16(tanh z) of both halves of a bf16 pair, correctly rounded
+__device__ __forceinline__ unsigned tanh_pair(unsigned z) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(tanh_approx(lo_f(z)), tanh_approx(hi_f(z)));
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Byte offsets of a CTA's shared arrays for g windows of (C, T) with U <= 32
+// units padded to up (16 or 32): x flat; q and k, a row of up + 8 bf16 for
+// each of the g*T rows; p hi and lo, ceil16(T) rows of ceil16(T) + 8 bf16 a
+// window; the energies (float rows of T | 1); the stretches' max and sum; Wa
+// and (addattn_x) bh as float; Wt and Wx transposed, up rows of ceil16(C) + 8.
+struct Layout16 {
+  int up, cp, tp, ldq, ldp, ldw, es, ps;
+  int q, k, ph, pl, e, pm, pd, wa, bh, wt, wx, total;
+};
+
+__host__ __device__ inline Layout16 layout_bf16(int c, int t, int u, int g, bool project) {
+  Layout16 l;
+  l.up = u <= 16 ? 16 : 32;
+  l.cp = (c + 15) / 16 * 16;
+  l.tp = (t + 15) / 16 * 16;
+  l.ldq = l.up + 8;
+  l.ldp = l.tp + 8;
+  l.ldw = l.cp + 8;
+  l.es = t | 1;
+  const int rows = g * t;
+  l.ps = round4(rows);
+  const int ss = stretches(t, g);
+  l.q = (g * c * t * 2 + 15) / 16 * 16;
+  l.k = l.q + (rows * l.ldq * 2 + 15) / 16 * 16;
+  l.ph = l.k + (rows * l.ldq * 2 + 15) / 16 * 16;
+  l.pl = l.ph + g * l.tp * l.ldp * 2;
+  l.e = l.pl + g * l.tp * l.ldp * 2;
+  l.pm = l.e + (rows * l.es * 4 + 15) / 16 * 16;
+  l.pd = l.pm + ss * l.ps * 4;
+  l.wa = l.pd + ss * l.ps * 4;
+  l.bh = l.wa + l.up * 4;
+  l.wt = l.bh + (project ? l.up * 4 : 0);
+  l.wx = l.wt + (project ? l.up * l.ldw * 2 : 0);
+  l.total = l.wx + (project ? l.up * l.ldw * 2 : 0);
+  return l;
+}
+
+// Copies n contiguous bf16: 16-byte cp.async pieces from a 16-byte aligned
+// start, the rest (or all, where the start is not aligned) by plain loads.
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int n) {
+  const int head = reinterpret_cast<uintptr_t>(src) % 16 == 0 ? n / 8 * 8 : 0;
+  for (int i = threadIdx.x * 8; i < head; i += blockDim.x * 8) cp_async16b(dst + i, src + i);
+  for (int i = head + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// grid ceil(B / g); blockDim a whole number of warps, at most kMaxWarps;
+// dynamic shared memory layout_bf16(c, t, u, g, kProject).total bytes; U <= kUP.
+// kProject: `qw` is Wt (C, U), `kw` is Wx (C, U), `bh` (U,); else `qw` is q
+// (B, T, U), `kw` is k (B, T, U) and `bh` is not read.
+template <int kUP, bool kProject>
+__global__ void __launch_bounds__(kMaxWarps * kLanes, 1)
+addattn_kernel_bf16(const bf16* __restrict__ x, const bf16* __restrict__ qw,
+                    const bf16* __restrict__ kw, const bf16* __restrict__ bh,
+                    const bf16* __restrict__ wa, bf16* __restrict__ out, int b, int c, int t,
+                    int u, int g, int ss, float eps) {
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  const Layout16 l = layout_bf16(c, t, u, g, kProject);
+  bf16* sx = reinterpret_cast<bf16*>(sm);
+  bf16* sq = reinterpret_cast<bf16*>(sm + l.q);
+  bf16* sk = reinterpret_cast<bf16*>(sm + l.k);
+  bf16* sph = reinterpret_cast<bf16*>(sm + l.ph);
+  bf16* spl = reinterpret_cast<bf16*>(sm + l.pl);
+  float* se = reinterpret_cast<float*>(sm + l.e);
+  float* pm = reinterpret_cast<float*>(sm + l.pm);  // (ss, rows): max of row r over stretch j
+  float* pd = reinterpret_cast<float*>(sm + l.pd);  // (ss, rows): sum of exp(e - row max) over stretch j
+  float* swa = reinterpret_cast<float*>(sm + l.wa);
+  float* sbh = reinterpret_cast<float*>(sm + l.bh);
+  bf16* swt = reinterpret_cast<bf16*>(sm + l.wt);
+  bf16* swx = reinterpret_cast<bf16*>(sm + l.wx);
+
+  const int tid = threadIdx.x, lane = tid % kLanes, warp = tid / kLanes;
+  const int n_warps = blockDim.x / kLanes;
+  const int w0 = blockIdx.x * g;   // first window of this CTA
+  const int gw = min(g, b - w0);   // its windows
+  const int rows = gw * t;         // its query rows, window after window
+  const int tq = lane & 3, gq = lane >> 2;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+
+  // ---- staging
+  stage_bf16(sx, x + static_cast<size_t>(w0) * c * t, gw * c * t);
+  if (!kProject) {
+    const bf16* qs = qw + static_cast<size_t>(w0) * t * u;
+    const bf16* ks = kw + static_cast<size_t>(w0) * t * u;
+    if (u % 8 == 0 && reinterpret_cast<uintptr_t>(qs) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(ks) % 16 == 0) {
+      const int n8 = u / 8;
+      for (int i = tid; i < rows * n8; i += blockDim.x) {
+        const int r = i / n8, col = (i - r * n8) * 8;
+        cp_async16b(sq + r * l.ldq + col, qs + r * u + col);
+        cp_async16b(sk + r * l.ldq + col, ks + r * u + col);
+      }
+    } else {
+      for (int i = tid; i < rows * u; i += blockDim.x) {
+        const int r = i / u, col = i - r * u;
+        sq[r * l.ldq + col] = qs[i];
+        sk[r * l.ldq + col] = ks[i];
+      }
+    }
+    const int pad = kUP - u;  // zeros in the padded units
+    for (int i = tid; i < rows * pad; i += blockDim.x) {
+      const int at = (i / pad) * l.ldq + u + i % pad;
+      sq[at] = sk[at] = zero;
+    }
+  } else {
+    // Wt and Wx transposed: row uu holds channels 0 .. cp, zeros past C and U
+    for (int i = tid; i < kUP * l.cp; i += blockDim.x) {
+      const int uu = i / l.cp, cc = i - uu * l.cp;
+      const bool in = uu < u && cc < c;
+      swt[uu * l.ldw + cc] = in ? qw[cc * u + uu] : zero;
+      swx[uu * l.ldw + cc] = in ? kw[cc * u + uu] : zero;
+    }
+    for (int i = tid; i < kUP; i += blockDim.x) sbh[i] = i < u ? __bfloat162float(bh[i]) : 0.0f;
+  }
+  for (int i = tid; i < kUP; i += blockDim.x) swa[i] = i < u ? __bfloat162float(wa[i]) : 0.0f;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // x[ch][time] of one window, zero past C and T
+  auto xat = [&](const bf16* xw, int ch, int time) {
+    return ch < c && time < t ? xw[ch * t + time] : zero;
+  };
+  const int mtiles = (t + 15) / 16;
+
+  if (kProject && !(kSkip & 8)) {
+    // q = bf16(bf16(x^T Wt) + bh), k = bf16(x^T Wx). Task (window, q or k,
+    // 16 rows); n-tiles of 8 units, k-steps of 16 channels
+    for (int task = warp; task < gw * 2 * mtiles; task += n_warps) {
+      const int gi = task % gw, rest = task / gw;
+      const int which = rest & 1, m0 = (rest >> 1) * 16;
+      const bf16* xw = sx + gi * c * t;
+      const bf16* wtr = which ? swx : swt;
+      bf16* dst = (which ? sk : sq) + gi * t * l.ldq;
+      float acc[kUP / 8][4];
+#pragma unroll
+      for (int j = 0; j < kUP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+      for (int k0 = 0; k0 < l.cp; k0 += 16) {
+        unsigned a[4];  // A[time][channel]: rows m0 + gq (+8), columns k0 + 2 tq (+1) (+8)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int time = m0 + gq + (r & 1) * 8, ch = k0 + 2 * tq + (r >> 1) * 8;
+          a[r] = pack2(xat(xw, ch, time), xat(xw, ch + 1, time));
+        }
+#pragma unroll
+        for (int j = 0; j < kUP / 8; ++j) {
+          // B[channel][unit] from the transposed weight: unit 8j + gq, channels k0 + 2 tq (+1) (+8)
+          const bf16* wr = wtr + (8 * j + gq) * l.ldw + k0 + 2 * tq;
+          mma_bf16(acc[j], a, *reinterpret_cast<const unsigned*>(wr),
+                   *reinterpret_cast<const unsigned*>(wr + 8));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kUP / 8; ++j) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int time = m0 + gq + half * 8, n = 8 * j + 2 * tq;
+          if (time < t) {
+            float v0 = __bfloat162float(__float2bfloat16_rn(acc[j][2 * half]));
+            float v1 = __bfloat162float(__float2bfloat16_rn(acc[j][2 * half + 1]));
+            if (which == 0) v0 += sbh[n], v1 += sbh[n + 1];
+            *reinterpret_cast<__nv_bfloat162*>(dst + time * l.ldq + n) = __floats2bfloat162_rn(v0, v1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- 1: energies. Task (rg, j): the 32 query rows of group rg against the
+  // j-th stretch of s; a lane keeps its row of q (bf16 pairs) and Wa (float)
+  // in registers, and the max of its stretch for the softmax.
+  const int row_groups = (rows + kLanes - 1) / kLanes;
+  const int stretch = (t + ss - 1) / ss;
+  float wreg[kUP];
+#pragma unroll
+  for (int i = 0; i < kUP; i += 4) {
+    const float4 wv = *reinterpret_cast<const float4*>(swa + i);
+    wreg[i] = wv.x, wreg[i + 1] = wv.y, wreg[i + 2] = wv.z, wreg[i + 3] = wv.w;
+  }
+  for (int task = warp; task < row_groups * ss && !(kSkip & 1); task += n_warps) {
+    const int rg = task % row_groups, j = task / row_groups;
+    const int r = rg * kLanes + lane;
+    const int rr = min(r, rows - 1);  // lanes past the last row repeat it and store nothing
+    unsigned q2[kUP / 2];
+#pragma unroll
+    for (int i = 0; i < kUP / 8; ++i) {
+      const uint4 v = *reinterpret_cast<const uint4*>(sq + rr * l.ldq + 8 * i);
+      q2[4 * i] = v.x, q2[4 * i + 1] = v.y, q2[4 * i + 2] = v.z, q2[4 * i + 3] = v.w;
+    }
+    const bf16* kbase = sk + (rr / t) * t * l.ldq;
+    const int s_lo = j * stretch, s_hi = min(t, s_lo + stretch);
+    float m = -INFINITY;
+    for (int s = s_lo; s < s_hi; ++s) {
+      float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kUP / 8; ++i) {
+        const uint4 kv = *reinterpret_cast<const uint4*>(kbase + s * l.ldq + 8 * i);
+        const unsigned k4[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const unsigned hh = tanh_pair(add_bf16x2(q2[4 * i + p], k4[p]));
+          e0 = fmaf(wreg[8 * i + 2 * p], lo_f(hh), e0);
+          e1 = fmaf(wreg[8 * i + 2 * p + 1], hi_f(hh), e1);
+        }
+      }
+      const float e = e0 + e1;
+      m = fmaxf(m, e);
+      if (r < rows) se[r * l.es + s] = e;
+    }
+    if (r < rows) pm[j * l.ps + r] = m;
+  }
+  __syncthreads();
+
+  // ---- 2: p = exp(e - row max), same tasks, written split as bf16 hi + lo
+  // into the window's (T, ceil16(T)) tiles; each stretch leaves its share of
+  // the denominator. Columns T .. ceil16(T) are zero (they meet x's zeros).
+  for (int task = warp; task < row_groups * ss && !(kSkip & 2); task += n_warps) {
+    const int rg = task % row_groups, j = task / row_groups;
+    const int r = rg * kLanes + lane;
+    if (r < rows) {
+      float m = pm[r];
+      for (int jj = 1; jj < ss; ++jj) m = fmaxf(m, pm[jj * l.ps + r]);
+      const int gi = r / t;
+      const int at = (gi * l.tp + r - gi * t) * l.ldp;
+      const float* er = se + r * l.es;
+      float sum = 0.0f;
+      for (int s = j * stretch; s < min(t, (j + 1) * stretch); ++s) {
+        const float v = expf(er[s] - m);
+        sum += v;
+        const bf16 hi = __float2bfloat16_rn(v);
+        sph[at + s] = hi;
+        spl[at + s] = __float2bfloat16_rn(v - __bfloat162float(hi));
+      }
+      if (j == ss - 1)
+        for (int s = t; s < l.tp; ++s) sph[at + s] = spl[at + s] = zero;
+      pd[j * l.ps + r] = sum;
+    }
+  }
+  __syncthreads();
+
+  // ---- 3: values, out^T = p x^T. Task (window, 16 rows of t, 8 channels);
+  // k-steps of 16 keys, p's hi and lo terms into one accumulator.
+  bf16* ob = out + static_cast<size_t>(w0) * c * t;
+  const int ntiles = l.cp / 8;
+  for (int task = warp; task < gw * mtiles * ntiles && !(kSkip & 4); task += n_warps) {
+    const int gi = task % gw, rest = task / gw;
+    const int m0 = (rest % mtiles) * 16, n0 = (rest / mtiles) * 8;
+    const bf16* xw = sx + gi * c * t;
+    const int frag = (gi * l.tp + m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * l.ldp + (lane >> 4) * 8;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < l.tp; k0 += 16) {
+      unsigned ah[4], al[4];
+      ldsm_x4(ah, sph + frag + k0);
+      ldsm_x4(al, spl + frag + k0);
+      // B[key][channel] = x[channel][key]: channel n0 + gq, keys k0 + 2 tq (+1) (+8)
+      const int ch = n0 + gq, s0 = k0 + 2 * tq;
+      const unsigned b0 = pack2(xat(xw, ch, s0), xat(xw, ch, s0 + 1));
+      const unsigned b1 = pack2(xat(xw, ch, s0 + 8), xat(xw, ch, s0 + 9));
+      mma_bf16(acc, ah, b0, b1);
+      mma_bf16(acc, al, b0, b1);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int time = m0 + gq + half * 8, ch = n0 + 2 * tq;
+      if (time < t) {
+        float den = eps;  // the row's sum + eps
+        for (int jj = 0; jj < ss; ++jj) den += pd[jj * l.ps + gi * t + time];
+        bf16* o = ob + (static_cast<size_t>(gi) * c + ch) * t + time;
+        if (ch < c) o[0] = __float2bfloat16_rn(acc[2 * half] / den);
+        if (ch + 1 < c) o[t] = __float2bfloat16_rn(acc[2 * half + 1] / den);
+      }
+    }
+  }
+}
+
+template <int kUP, bool kProject>
+int launch_bf16_instance(const bf16* x, const bf16* qw, const bf16* kw, const bf16* bh,
+                         const bf16* wa, bf16* out, int b, int c, int t, int u, int g, int ss,
+                         int threads, float eps, cudaStream_t stream) {
+  const int smem = layout_bf16(c, t, u, g, kProject).total;
+  auto kernel = addattn_kernel_bf16<kUP, kProject>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<(b + g - 1) / g, threads, smem, stream>>>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kProject>
+int launch_bf16(const bf16* x, const bf16* qw, const bf16* kw, const bf16* bh, const bf16* wa,
+                bf16* out, int b, int c, int t, int u, int g, float eps, void* stream) {
+  if (b < 1 || c < 1 || t < 1 || u < 1 || u > 32 || g < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int row_groups = (g * t + kLanes - 1) / kLanes;
+  const int ss = stretches(t, g);
+  const int warps = row_groups * ss < kMaxWarps ? row_groups * ss : kMaxWarps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (u <= 16)
+    return launch_bf16_instance<16, kProject>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss,
+                                              warps * kLanes, eps, s);
+  return launch_bf16_instance<32, kProject>(x, qw, kw, bh, wa, out, b, c, t, u, g, ss,
+                                            warps * kLanes, eps, s);
+}
+
 }  // namespace
 
 // Shared memory in bytes of one CTA that holds g windows, for either entry;
@@ -477,19 +885,26 @@ extern "C" int addattn_x_f32(const float* x, const float* wt, const float* bh, c
   return launch<true>(x, wt, wx, bh, wa, out, b, c, t, u, g, eps, stream);
 }
 
-// addattn_f32 on bf16 operands and output; float32 inside.
+// Shared memory in bytes of one CTA of the bf16 body that holds g windows
+// (U <= 32), for either entry.
+extern "C" int addattn_bf16_smem_bytes(int c, int t, int u, int g, int project) {
+  return layout_bf16(c, t, u, g, project != 0).total;
+}
+
+// x (B, C, T), q and k (B, T, U), wa (U,), out (B, C, T): bf16, contiguous on
+// the device; U <= 32; g windows a CTA. The bf16 body.
 extern "C" int addattn_bf16(const __nv_bfloat16* x, const __nv_bfloat16* q,
                             const __nv_bfloat16* k, const __nv_bfloat16* wa, __nv_bfloat16* out,
                             int b, int c, int t, int u, int g, float eps, void* stream) {
-  return launch<false>(x, q, k, static_cast<const __nv_bfloat16*>(nullptr), wa, out, b, c, t, u,
-                       g, eps, stream);
+  return launch_bf16<false>(x, q, k, static_cast<const __nv_bfloat16*>(nullptr), wa, out, b, c,
+                            t, u, g, eps, stream);
 }
 
-// addattn_x_f32 on bf16 operands and output; the projections, like the rest,
-// in float32.
+// As addattn_bf16 with q and k projected inside: wt and wx (C, U), bh and wa
+// (U,). The bf16 body.
 extern "C" int addattn_x_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wt,
                               const __nv_bfloat16* bh, const __nv_bfloat16* wx,
                               const __nv_bfloat16* wa, __nv_bfloat16* out, int b, int c, int t,
                               int u, int g, float eps, void* stream) {
-  return launch<true>(x, wt, wx, bh, wa, out, b, c, t, u, g, eps, stream);
+  return launch_bf16<true>(x, wt, wx, bh, wa, out, b, c, t, u, g, eps, stream);
 }

@@ -165,7 +165,16 @@ class TPUPickNet(nn.Module):
         if attn == "pallas":
             return mha_qkv(qkv, scale)
         q, k, v = qkv.unbind(2)
-        att = torch.softmax(torch.einsum("bthd,bshd->bhts", q, k) * scale, dim=-1)
+        att = torch.einsum("bthd,bshd->bhts", q, k)
+        if qkv.dtype == torch.bfloat16:
+            # JAX's bf16 rounding points: the weakly typed scale rounded to
+            # bf16 and the product rounded; jax.nn.softmax rounds s - max,
+            # its exp, the row sum and the quotient
+            att = att * torch.tensor(scale, dtype=att.dtype)
+            att = torch.exp(att - att.amax(dim=-1, keepdim=True))
+            att = att / att.sum(dim=-1, keepdim=True)
+        else:
+            att = torch.softmax(att * scale, dim=-1)
         return torch.einsum("bhts,bshd->bthd", att, v).reshape(b, t, h * dh)
 
     @property

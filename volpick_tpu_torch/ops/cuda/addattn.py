@@ -23,10 +23,17 @@ Each entry takes its twin for CPU tensors and the kernel for CUDA tensors;
 there is no other route. ``launches`` counts the kernel launches of both.
 
 Both entries take float32 or bfloat16 (all operands of one type). On bf16
-the kernel computes in float32 from the bf16 values (projections, energies,
-softmax, values) and writes bf16, as the Pallas kernel accumulates its value
-product in float32 and writes ``x.dtype``; the twins do the same arithmetic.
-There is no route that casts bf16 up and calls the float32 entry.
+the kernel (a body of its own, on the tensor cores) and the twins round
+where the Pallas kernel and its caller round in bf16: q = bf16(bf16(xᵀWt) +
+bh) and k = bf16(xᵀWx) (``addattn`` takes them given), q + k and tanh in
+bf16; the energies Wa . h, the softmax and the value product's sums in
+float32, the output rounded to bf16. The probabilities stay float32 where
+the Pallas kernel rounds them to bf16 (the kernel feeds them to its products
+as two bf16 terms): rounded, they put the port farther from JAX's bf16 than
+2^-7 of its largest output where tanh saturates. The
+kernel's tanh (``tanh.approx.f32`` rounded to bf16) is the twins' correctly
+rounded one on every bf16 input. There is no route that casts bf16 up and
+calls the float32 entry.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from volpick_tpu_torch.ops.cuda import ENTRY_SUFFIX, _build, refuse_autograd
 # window of T = 128 takes 117 KB, T = 256 does not fit
 MAX_SHARED_BYTES = 227 * 1024
 MAX_WINDOWS_PER_CTA = 4
+MAX_UNITS_BF16 = 32  # the bf16 body keeps a row of q in registers
 
 launches = 0  # kernel launches made by addattn and addattn_x on CUDA tensors
 bf16_launches = 0  # of them, launches of the bf16 instantiation
@@ -53,12 +61,13 @@ def addattn_reference(
     x: torch.Tensor, q: torch.Tensor, k: torch.Tensor, wa: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     """Plain PyTorch twin of ``addattn``, on any device: x (B, C, T), q and k
-    (B, T, U) with bh folded into q, wa (U,). bfloat16 operands: float32
-    arithmetic on their values, the result rounded to bf16."""
+    (B, T, U) with bh folded into q, wa (U,). bfloat16 operands: q + k and
+    its tanh rounded to bf16, the rest float32 arithmetic on their values,
+    the result rounded to bf16."""
     dtype = x.dtype
-    if dtype == torch.bfloat16:
-        x, q, k, wa = (a.float() for a in (x, q, k, wa))
     h = torch.tanh(q[:, :, None, :] + k[:, None, :, :])  # (B, T, T, U)
+    if dtype == torch.bfloat16:
+        h, x, wa = h.float(), x.float(), wa.float()
     e = (h * wa).sum(dim=-1)
     e = torch.exp(e - e.amax(dim=-1, keepdim=True))
     a = e / (e.sum(dim=-1, keepdim=True) + eps)
@@ -70,14 +79,11 @@ def addattn_x_reference(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """Plain PyTorch twin of ``addattn_x``, on any device: the two projections
-    as matmuls, then ``addattn_reference``. bfloat16 operands: the projections
-    too are float32 arithmetic on their values (the kernel keeps q and k in
-    float32), the result rounded to bf16."""
-    dtype = x.dtype
-    if dtype == torch.bfloat16:
-        x, wt, bh, wx, wa = (a.float() for a in (x, wt, bh, wx, wa))
+    as matmuls, then ``addattn_reference``. bfloat16 operands: each
+    projection and the bias sum in bf16, as ``seq_self_attention_pallas``
+    forms them."""
     xt = x.transpose(1, 2)
-    return addattn_reference(x, xt @ wt + bh, xt @ wx, wa, eps).to(dtype)
+    return addattn_reference(x, xt @ wt + bh, xt @ wx, wa, eps)
 
 
 def _round4(n: int) -> int:
@@ -104,13 +110,41 @@ def _smem_bytes(c: int, t: int, u: int, g: int = 1, project: bool = False) -> in
     return 4 * floats
 
 
-def windows_per_cta(b: int, c: int, t: int, u: int, n_sm: int, project: bool = False) -> int:
+def _smem_bytes_bf16(c: int, t: int, u: int, g: int = 1, project: bool = False) -> int:
+    """Shared memory of one CTA of the bf16 body that holds g windows, as
+    ``csrc/addattn.cu::layout_bf16`` counts it (U <= 32): x; q and k rows of
+    U padded to 16 or 32 plus 8 bf16; p's hi and lo terms, ceil16(T) rows of
+    ceil16(T) + 8 bf16 a window; the float32 energies, stretch maxima and sums
+    as in the float body; Wa and (projecting) bh in float32, Wt and Wx
+    transposed to rows of ceil16(C) + 8 bf16."""
+    def a16(n: int) -> int:
+        return -(-n // 16) * 16
+
+    up = 16 if u <= 16 else 32
+    tp, cp = a16(t), a16(c)
+    rows = g * t
+    row_groups = -(-rows // 32)
+    stretches = 1
+    while row_groups * stretches * 2 <= 16 and stretches * 2 <= t:
+        stretches *= 2
+    total = (a16(2 * g * c * t) + 2 * a16(2 * rows * (up + 8)) + 2 * 2 * g * tp * (tp + 8)
+             + a16(4 * rows * (t | 1)) + 2 * 4 * stretches * _round4(rows) + 4 * up)
+    if project:
+        total += 4 * up + 2 * 2 * up * (cp + 8)
+    return total
+
+
+def windows_per_cta(
+    b: int, c: int, t: int, u: int, n_sm: int, project: bool = False, bf16: bool = False
+) -> int:
     """How many windows one CTA takes: as many as leave no more CTAs than the
     card has SMs (so that at B = 232 on 132 SMs two windows fill 94 of 96
     lanes and every SM ends together), at most ``MAX_WINDOWS_PER_CTA``, and no
-    more than fit in shared memory. 0 where one window does not fit."""
+    more than fit in shared memory (the float32 body's or, ``bf16``, the bf16
+    body's). 0 where one window does not fit."""
+    smem = _smem_bytes_bf16 if bf16 else _smem_bytes
     g = max(1, min(MAX_WINDOWS_PER_CTA, -(-b // n_sm)))
-    while g > 0 and _smem_bytes(c, t, u, g, project) > MAX_SHARED_BYTES:
+    while g > 0 and smem(c, t, u, g, project) > MAX_SHARED_BYTES:
         g -= 1
     return g
 
@@ -166,12 +200,16 @@ def _launch(entry: str, x: torch.Tensor, operands, u: int, eps: float, project: 
     out = torch.empty_like(x)
     if b * c * t == 0:
         return out
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and u > MAX_UNITS_BF16:
+        raise ValueError(f"the bf16 body takes U <= {MAX_UNITS_BF16}, got {u}")
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    g = windows_per_cta(b, c, t, u, n_sm, project)
+    g = windows_per_cta(b, c, t, u, n_sm, project, bf16)
     if g == 0:
+        smem = (_smem_bytes_bf16 if bf16 else _smem_bytes)(c, t, u, 1, project)
         raise ValueError(
-            f"one window (C {c}, T {t}, U {u}) needs {_smem_bytes(c, t, u, 1, project)} B of "
-            f"shared memory, above {MAX_SHARED_BYTES}"
+            f"one window (C {c}, T {t}, U {u}) needs {smem} B of shared memory, above "
+            f"{MAX_SHARED_BYTES}"
         )
     fn = _build.function(
         entry,

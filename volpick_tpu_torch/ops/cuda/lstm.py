@@ -16,20 +16,24 @@ body:
   stacked or flipped copies of x and without flipping and concatenating the
   states. All branches share one projection of x against the stacked W_ih.
 
-On CUDA the input projection for all T steps is one batched matrix product
-outside the kernel, against W_ih with its rows permuted unit-major
-(``unit_major``), so that a thread's four gate inputs lie side by side; the
-kernel adds the bias and runs the recurrence. Each entry takes its twin for
-a CPU tensor and the kernel for a CUDA tensor; there is no other route.
+On CUDA in float32 the input projection for all T steps is one batched
+matrix product outside the kernel, against W_ih with its rows permuted
+unit-major (``unit_major``), so that a thread's four gate inputs lie side by
+side; the kernel adds the bias and runs the recurrence. Each entry takes its
+twin for a CPU tensor and the kernel for a CUDA tensor; there is no other
+route.
 
 Both forms take float32 or bfloat16 (x and the weights of one type). The
-bfloat16 entry does what the Pallas kernel does on bf16 operands: the
-projection is a bf16 matrix product (float32 sums, rounded to bf16), h and c
-are carried and the gates computed in float32, and the states are written as
-bf16. The bf16 twins take the projection from the same function as the
-kernel's wrapper, so that on the card a rounding of the matrix product that
-falls otherwise in another library call does not separate kernel and twin.
-There is no route that casts bf16 up and calls the float32 entry.
+bfloat16 entry computes what the Pallas kernel computes on bf16 operands,
+with the projection as ``lstm_multi_pallas`` forms it: the gate inputs are
+bf16(bf16(x . W_ih) + b) (a bf16 product with float32 sums, rounded, the
+bias added in bf16), h and c are carried and the gates computed in float32,
+and the states are written as bf16. On CUDA that is one launch a call
+(``csrc/lstm_multi.cu``'s bf16 body projects on the tensor cores inside the
+kernel, no W_ih copy, no matrix product outside). The bf16 twins take the
+product from ``project``; the card sums it in another order, which can move
+a gate input by one bf16 ulp. There is no route that casts bf16 up and calls
+the float32 entry.
 """
 
 from __future__ import annotations
@@ -75,19 +79,21 @@ def lstm_multi_reference(
 
 def _recurrence_reference(xp: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """The bf16 kernel's arithmetic in plain PyTorch: xp (G, B, T, 4H), the
-    bf16 projection without bias in unit-major order (``unit_major``), is
-    widened to float32, as are W_hh and the bias; gates, h and c in float32;
-    the states (G, B, H, T) come back rounded to xp's type."""
+    bf16 projection without bias in unit-major order (``unit_major``), gets
+    the bias added in bf16 (bf16(xp + b), as ``lstm_multi_pallas`` forms its
+    projection) and is widened to float32, as are W_hh; gates, h and c in
+    float32; the states (G, B, H, T) come back rounded to xp's type."""
     g, b, t, four_h = xp.shape
     h_dim = four_h // 4
     w = w_hh.float()
-    bias_um = bias.float().reshape(g, 1, 4, h_dim).transpose(2, 3)  # (G, 1, H, 4)
+    bias_um = unit_major(bias.to(xp.dtype))  # (G, 4H)
+    xb = (xp + bias_um[:, None, None, :]).float().reshape(g, b, t, h_dim, 4)
     h = xp.new_zeros((g, b, h_dim), dtype=torch.float32)
     cell = torch.zeros_like(h)
     hs = []
     for step in range(t):
         rec = torch.einsum("gbh,gkh->gbk", h, w).reshape(g, b, 4, h_dim).transpose(2, 3)
-        gates = (xp[:, :, step].float().reshape(g, b, h_dim, 4) + bias_um) + rec
+        gates = xb[:, :, step] + rec
         i, f, gg, o = gates.unbind(-1)
         cell = torch.sigmoid(f) * cell + torch.sigmoid(i) * torch.tanh(gg)
         h = torch.sigmoid(o) * torch.tanh(cell)
@@ -101,17 +107,9 @@ def lstm_branches_reference(
 ) -> torch.Tensor:
     """Plain PyTorch twin of ``lstm_branches``, on any device: the reversed
     branches scan a time-flipped copy of x and their states are flipped back,
-    then the branches are concatenated on the channel axis. On bfloat16
-    operands the projection is the wrapper's own (``project_shared``), the
-    reversed branches scan its time-flipped copy."""
-    if x.dtype == torch.bfloat16:
-        b, _, t = x.shape
-        xp = project_shared(x, w_ih).reshape(b, t, len(reverse), -1).permute(2, 0, 1, 3)
-        xp = torch.stack([xp[g].flip(1) if r else xp[g] for g, r in enumerate(reverse)])
-        hs = _recurrence_reference(xp, w_hh, bias)
-    else:
-        xs = torch.stack([x.flip(-1) if r else x for r in reverse])
-        hs = lstm_multi_reference(xs, w_ih, w_hh, bias)
+    then the branches are concatenated on the channel axis."""
+    xs = torch.stack([x.flip(-1) if r else x for r in reverse])
+    hs = lstm_multi_reference(xs, w_ih, w_hh, bias)
     return torch.cat([hs[g].flip(-1) if r else hs[g] for g, r in enumerate(reverse)], dim=1)
 
 
@@ -150,31 +148,21 @@ def recurrence(
     xp: torch.Tensor, x_strides, w_hh: torch.Tensor, bias: torch.Tensor,
     out: torch.Tensor, out_strides, b: int, t: int, reverse_mask: int = 0,
 ) -> None:
-    """Launch the kernel on a projected input: gate inputs of (branch g,
-    window n, time s, unit u) are the 4 elements of `xp` at
+    """Launch the float32 kernel on a projected input: gate inputs of (branch
+    g, window n, time s, unit u) are the 4 elements of `xp` at
     g·x_strides[0] + n·x_strides[1] + s·x_strides[2] + 4u; its state goes to
-    `out` at g·out_strides[0] + n·out_strides[1] + u·T + s. CUDA only; the
-    instantiation (float32 or bf16) is the one of xp's type, which the other
-    three share."""
-    global launches, bf16_launches
+    `out` at g·out_strides[0] + n·out_strides[1] + u·T + s. CUDA only."""
+    global launches
     refuse_autograd("lstm recurrence", xp=xp, w_hh=w_hh, bias=bias)
     g, _, h = w_hh.shape
-    if h > MAX_HIDDEN:
-        raise ValueError(f"hidden size {h} exceeds the kernel's limit {MAX_HIDDEN}")
-    if reverse_mask and g > MAX_BRANCHES:
-        raise ValueError(f"{g} branches exceed the {MAX_BRANCHES} the reverse flags cover")
-    if xp.dtype not in ENTRY_SUFFIX:
-        raise TypeError(f"xp must be float32 or bfloat16, got {xp.dtype}")
-    for name, a in (("xp", xp), ("w_hh", w_hh), ("bias", bias), ("out", out)):
-        if a.device.type != "cuda" or not a.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous CUDA tensor")
-        if a.dtype != xp.dtype:
-            raise TypeError(f"{name} must be {xp.dtype} as xp is, got {a.dtype}")
+    _check_launch(g, h, reverse_mask)
+    if xp.dtype != torch.float32:
+        raise TypeError(f"the recurrence alone runs on float32, got {xp.dtype}")
+    _check_operands(xp.dtype, xp=xp, w_hh=w_hh, bias=bias, out=out)
     if g * b * t == 0:
         return
-    entry = f"lstm_multi_{ENTRY_SUFFIX[xp.dtype]}"
     fn = _build.function(
-        entry,
+        "lstm_multi_f32",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 5
         + [ctypes.c_uint, ctypes.c_void_p],
     )
@@ -184,9 +172,56 @@ def recurrence(
         torch.cuda.current_stream(xp.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        raise RuntimeError(f"lstm_multi_f32 launch failed: cudaError {err}")
     launches += 1
-    bf16_launches += xp.dtype == torch.bfloat16
+
+
+def _check_launch(g: int, h: int, reverse_mask: int) -> None:
+    if h > MAX_HIDDEN:
+        raise ValueError(f"hidden size {h} exceeds the kernel's limit {MAX_HIDDEN}")
+    if reverse_mask and g > MAX_BRANCHES:
+        raise ValueError(f"{g} branches exceed the {MAX_BRANCHES} the reverse flags cover")
+
+
+def _check_operands(dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+    for name, a in tensors.items():
+        if a.device.type != "cuda" or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CUDA tensor")
+        if a.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {a.dtype}")
+
+
+def fused_bf16(
+    x: torch.Tensor, x_branch_stride: int, w_ih: torch.Tensor, w_hh: torch.Tensor,
+    bias: torch.Tensor, out: torch.Tensor, out_strides, reverse_mask: int = 0,
+) -> None:
+    """Launch the bf16 kernel, projection included: window n of branch g
+    reads x (C, T) at g·x_branch_stride + n·C·T (0 when every branch reads
+    one x), W_ih (G, 4H, C), W_hh (G, 4H, H) and the bias (G, 4H) as the
+    caller holds them (gate-major); its state goes to `out` at
+    g·out_strides[0] + n·out_strides[1] + u·T + s. CUDA only."""
+    global launches, bf16_launches
+    refuse_autograd("lstm_multi bf16", x=x, w_ih=w_ih, w_hh=w_hh, bias=bias)
+    g, _, h = w_hh.shape
+    _check_launch(g, h, reverse_mask)
+    _check_operands(torch.bfloat16, x=x, w_ih=w_ih, w_hh=w_hh, bias=bias, out=out)
+    b, c, t = x.shape[-3:]
+    if g * b * t == 0:
+        return
+    fn = _build.function(
+        "lstm_multi_bf16",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+        + [ctypes.c_uint, ctypes.c_void_p],
+    )
+    err = fn(
+        x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        g, b, c, t, h, x_branch_stride, *out_strides, reverse_mask,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"lstm_multi_bf16 launch failed: cudaError {err}")
+    launches += 1
+    bf16_launches += 1
 
 
 def project(xs: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
@@ -220,6 +255,10 @@ def lstm_multi(
     if not w_hh.is_contiguous():
         raise ValueError("w_hh must be contiguous")
     out = torch.empty((g, b, h, t), dtype=xs.dtype, device=xs.device)
+    if xs.dtype == torch.bfloat16:
+        fused_bf16(xs.contiguous(), b * xs.shape[2] * t, w_ih.contiguous(), w_hh,
+                   bias.contiguous(), out, (b * h * t, h * t))
+        return out
     xp = project(xs, w_ih) if out.numel() else out  # (G, B, T, 4H)
     recurrence(xp, (b * t * 4 * h, t * 4 * h, 4 * h), w_hh, bias.contiguous(),
                out, (b * h * t, h * t), b, t)
@@ -246,8 +285,12 @@ def lstm_branches(
     if not w_hh.is_contiguous():
         raise ValueError("w_hh must be contiguous")
     out = torch.empty((b, g * h, t), dtype=x.dtype, device=x.device)
-    xp = project_shared(x, w_ih) if out.numel() else out  # (B, T, G·4H)
     mask = sum(1 << i for i, r in enumerate(reverse) if r)
+    if x.dtype == torch.bfloat16:
+        fused_bf16(x.contiguous(), 0, w_ih.contiguous(), w_hh, bias.contiguous(), out,
+                   (h * t, g * h * t), mask)
+        return out
+    xp = project_shared(x, w_ih) if out.numel() else out  # (B, T, G·4H)
     recurrence(xp, (4 * h, t * g * 4 * h, g * 4 * h), w_hh, bias.contiguous(),
                out, (h * t, g * h * t), b, t, mask)
     return out
