@@ -249,6 +249,23 @@
    gloo rank: 4 forwards). Prints each rank's launches and host seconds;
    a rank that fails or outlasts 300 s fails the phase.
 
+13. the bench command (volpick_tpu_torch/bench.py): bench.throughput on the
+   bench workload (1832 windows a call, the bench's model and thresholds)
+   in float32 and in bf16, each a warm-up and 2 x (4 + 24) timed
+   classify_arrays calls, launches counted (K1 once and K2 32 times a call,
+   K2's bf16 entry under bf16, nothing else); the last timed call's pick
+   buffers exactly the warm-up call's, and exactly the oracle's trigger rule
+   (picker/oracle.py: trigger_onset_numpy(curve, t, t / 2), the peak the
+   argmax over [on, off]) on the card's own curves, at the bench's
+   thresholds and at each label's largest curve value below its 99.9th
+   percentile (picks on every label).
+   Then `python -m volpick_tpu_torch bench` as a subprocess from an empty
+   directory with BENCH_AXES set: its last stdout line exactly the four
+   keys, value > 0 and a numeric vs_baseline, and BENCH_AXES.json written
+   there with the bf16 rate; and once more under CUDA_VISIBLE_DEVICES="",
+   which must exit non-zero with no metric line. Prints a {"bench": ...}
+   line before the kernels line.
+
 Exits non-zero on any failure and without a CUDA device. The last two lines
 are a JSON summary of the kernels and {"ok": true, "device": {...}}.
 """
@@ -322,6 +339,8 @@ MESH_BATCH, MESH_STEPS, MESH_LOSS_RTOL, ADAM_U_MAX, MESH_STAT_RTOL, MESH_TIMEOUT
 # of MESH64_BATCH rows against one process to the CPU tests' pins (losses
 # relative, parameters / EMA / BatchNorm statistics absolute)
 MESH64_BATCH, MESH64_STEPS, MESH64_LOSS_RTOL, MESH64_ATOL = 32, 3, 1e-6, 1e-7
+# phase 13: the bench's timed runs (bench.py's 4 and 24 calls), its windows and forwards a call
+BENCH_ITERS, BENCH_WINDOWS, BENCH_FORWARDS = (4, 24), 1832, 8
 GOLDEN_METRICS = ["prob_thre", "tp_thre"] + [  # the reference's {set}_metrics.csv (`eval_taks0.py:722-783`)
     f"{ph}_{c}" for ph in ("p", "s") for c in (
         "TP", "FP", "FN", "precision", "recall", "F1score", "mean", "median", "std", "MAE", "MAD", "out",
@@ -1979,6 +1998,120 @@ def mesh_phase(dev, card, waves, meta, data) -> dict:
         shutil.rmtree(io, ignore_errors=True)
 
 
+def bench_phase(dev, card, zero_counts, read_counts) -> dict:
+    """Phase 13: the bench command, in this process and as `python -m
+    volpick_tpu_torch bench` (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from volpick_tpu_torch import bench
+    from volpick_tpu_torch.ops.triggers import trigger_onset_numpy
+    from volpick_tpu_torch.picker.stage_times import bench_stream_array
+
+    t_phase = time.perf_counter()
+    model, pretrained = bench.load_bench_model(dev)
+    data = bench_stream_array(0)
+    upload = bench.upload_ms(data, dev)
+    kw = dict(overlap=bench.OVERLAP, blinding=bench.BLINDING, batch_size=bench.BATCH)
+    out, launches = {}, {}
+    for precision in ("float32", "bfloat16"):
+        picker = bench.make_picker(model, dev, precision)
+        forwards = [0]
+        hook = picker._net.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        zero_counts()
+        try:
+            res = bench.throughput(picker, data, *BENCH_ITERS)
+            launches[precision] = got = read_counts()
+        finally:
+            hook.remove()
+        calls = 1 + 2 * sum(BENCH_ITERS)
+        want = dict.fromkeys(got, 0)
+        want.update(trigger_extract=calls, lstm_multi=4 * forwards[0])
+        if precision == "bfloat16":
+            want["lstm_multi_bf16"] = 4 * forwards[0]
+        if got != want or forwards[0] != BENCH_FORWARDS * calls:
+            fail(f"bench {precision}: launches {got}, want {want} ({calls} calls, {forwards[0]} forwards, "
+                 f"want {BENCH_FORWARDS} a call)")
+        if res.windows != BENCH_WINDOWS or not (np.isfinite(res.windows_per_s) and res.windows_per_s > 0):
+            fail(f"bench {precision}: {res.windows} windows a call at {res.windows_per_s} windows/s")
+        for lab in ("Detection", "P", "S"):
+            if not all(np.array_equal(a, b) for a, b in zip(res.first[lab], res.last[lab])):
+                fail(f"bench {precision}: {lab}: the last timed call's pick buffers are not the warm-up's")
+        # the oracle's trigger rule on the card's own curves, at the bench's
+        # thresholds and at each label's 99.9th percentile
+        curves = picker.annotate_array(data, **kw)
+        # (the largest value below it: bf16 curves hold runs of equal values)
+        near = {}
+        for k, lab in enumerate(("Detection", "P", "S")):
+            vals = np.unique(curves[:, k])
+            near[lab] = float(vals[vals < np.percentile(curves[:, k], 99.9)][-1])
+        n_oracle = {}
+        for name, thr, got_picks in (("bench", bench.THRESHOLDS, res.last),
+                                     ("99.9th percentile", near, bench.classify(picker, data, near))):
+            n = 0
+            for k, lab in enumerate(("Detection", "P", "S")):
+                pk, val, valid, on, off = got_picks[lab]
+                t1 = np.float32(thr[lab])
+                for si in range(data.shape[0]):
+                    row = curves[si, k]
+                    rule = [(on_ + int(np.argmax(row[on_ : off_ + 1])), on_, off_)
+                            for on_, off_ in trigger_onset_numpy(row, t1, t1 / np.float32(2.0))][: bench.MAX_PICKS]
+                    mine = [(int(p_), int(a_), int(b_)) for p_, a_, b_, v_ in zip(pk[si], on[si], off[si], valid[si])
+                            if v_]
+                    if mine != rule or not np.array_equal(val[si][valid[si]], row[[p_ for p_, _, _ in rule]]):
+                        fail(f"bench {precision}: {lab} station {si} at the {name} thresholds: K1 gives "
+                             f"{len(mine)} picks, the oracle's rule on the same curves {len(rule)}; not equal")
+                    n += len(rule)
+                if name != "bench" and not valid.any():
+                    fail(f"bench {precision}: no {lab} pick at its 99.9th percentile {thr[lab]}")
+            n_oracle[name] = n
+        out[precision] = {"windows_per_s": res.windows_per_s, "median_ms": res.median_ms,
+                          "n_picks": res.n_picks, "oracle_picks": n_oracle}
+        print(f"bench {precision} on {card}: {res.windows_per_s:.2f} windows/s (differenced, {res.windows} "
+              f"windows a call), single-call median {res.median_ms:.2f} ms, n_picks {res.n_picks}; "
+              f"picks equal to the warm-up's and to the oracle's rule ({n_oracle}); launches {got}")
+        del picker
+
+    # ---- the command, from an empty directory, with the bf16 axis on
+    tmp = tempfile.mkdtemp(prefix="volpick_bench_")
+    try:
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo, BENCH_AXES="1")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "volpick_tpu_torch", "bench"], cwd=tmp, env=env,
+                             capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        lines = run.stdout.strip().splitlines()
+        print("bench command: " + " | ".join(lines) + f" ({cli_s:.1f} s)")
+        if run.returncode != 0 or not lines:
+            fail(f"bench command: exit {run.returncode}\n{run.stderr[-3000:]}")
+        line = json.loads(lines[-1])
+        if (list(line) != ["metric", "value", "unit", "vs_baseline"] or line["metric"] != "eqt_classify_windows_per_s"
+                or line["unit"] != "windows/s" or not line["value"] > 0
+                or not isinstance(line["vs_baseline"], (int, float))):
+            fail(f"bench command: last line {line}\n{run.stderr[-3000:]}")
+        cpu = re.search(r"cpu-torch baseline ([0-9.]+) windows/s", run.stdout)
+        with open(os.path.join(tmp, "BENCH_AXES.json")) as f:
+            axes = json.load(f)
+        if sorted(axes) != ["bf16_classify_windows_per_s", "fp32_classify_windows_per_s", "method"] or not (
+                axes["bf16_classify_windows_per_s"] > 0):
+            fail(f"bench command: BENCH_AXES.json {axes}")
+        hidden = subprocess.run([sys.executable, "-m", "volpick_tpu_torch", "bench"], cwd=tmp,
+                                env=dict(env, CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True,
+                                timeout=300)
+        if hidden.returncode == 0 or "eqt_classify_windows_per_s" in hidden.stdout:
+            fail(f"bench command without a visible card: exit {hidden.returncode}, stdout {hidden.stdout!r}")
+        print(f"bench command without a visible card: exit {hidden.returncode}, "
+              f"{(hidden.stderr.strip().splitlines() or [''])[-1]!r}, no metric line")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {"card": card, "pretrained": pretrained, "upload_ms": upload, **{
+        f"{'fp32' if p_ == 'float32' else 'bf16'}_{k}": v for p_, r in out.items() for k, v in r.items()},
+        "cpu_baseline_windows_per_s": float(cpu.group(1)) if cpu else None, "command": line,
+        "command_axes": axes, "command_s": cli_s, "phase_s": time.perf_counter() - t_phase}
+    return dict(summary=summary, launches=launches)
+
+
 def adam_bound(lrs, state) -> float:
     """How far two float32 runs of the same Adam steps may leave a parameter
     apart: each moves it by at most ADAM_U_MAX * lr a step, in either
@@ -3097,6 +3230,12 @@ def main() -> None:
     for tag in ("nccl", "gloo"):
         for r in meshing[tag]["ranks"]:
             by_path[f"eqtransformer/mesh {tag} rank {r['rank']}"] = r["launches"]
+
+    # ---- 13. the bench command: in this process and as a subprocess
+    benching = bench_phase(dev, card, zero_counts, read_counts)
+    for precision, got in benching["launches"].items():
+        by_path[f"eqtransformer/bench {precision}"] = got
+    print(json.dumps({"bench": benching["summary"]}))
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bnd, library_ms=None, **extra):
         return dict({"name": name, "route": "cuda", "source": f"volpick_tpu_torch/csrc/{source}",

@@ -920,13 +920,8 @@ def test_lstm_bf16_entries_match_twins(dev, b, c, h, t):
     assert (cuda_lstm.launches, cuda_lstm.bf16_launches) == (before[0] + 2, before[1] + 2)
     from volpick_tpu_torch.picker.stage_times import profiled
 
-    # a profiler session that records no device row at all measured nothing
-    # (a process's first one has come back so on an H100): it is run again
-    for _ in range(3):
-        events = profiled(lambda: [cuda_lstm.lstm_branches(x, *w, reverse=(False, True)) for _ in range(10)])[2]
-        kernels = {e.key: e.count for e in events if str(e.device_type).endswith("CUDA")}
-        if kernels:
-            break
+    events = profiled(lambda: [cuda_lstm.lstm_branches(x, *w, reverse=(False, True)) for _ in range(10)])[2]
+    kernels = {e.key: e.count for e in events if str(e.device_type).endswith("CUDA")}
     assert len(kernels) == 1 and "lstm_multi_kernel_bf16" in next(iter(kernels)), kernels
     assert sum(kernels.values()) == 10
 
@@ -1028,6 +1023,28 @@ def test_bf16_picker_launches_the_bf16_kernels(dev):
     got = picker.annotate_array(data, overlap=752, batch_size=8)
     assert cuda_lstm.bf16_launches == cuda_lstm.launches > 0 and cuda_lstm.launches % 4 == 0
     assert got.dtype == np.float32 and np.abs(got - want).max() <= 0.1
+
+
+def test_bench_throughput_picks_equal_classify(dev):
+    """The bench's timing on one station of the bench stream: a positive
+    rate, K1 once a call, and picks (at thresholds that raise some) exactly
+    a direct classify_arrays call's."""
+    from volpick_tpu_torch import bench
+    from volpick_tpu_torch.picker.stage_times import bench_stream_array
+
+    data = np.ascontiguousarray(bench_stream_array(0)[:1])
+    picker = bench.make_picker(load_model("eqtransformer", seed=0, device=dev), dev)
+    before = cuda_trig.launches
+    res = bench.throughput(picker, data, iters_a=1, iters_b=2)
+    assert cuda_trig.launches == before + 1 + 2 * 3
+    assert res.windows == 229 and np.isfinite(res.windows_per_s) and res.windows_per_s > 0
+    direct = picker.classify_arrays(data, bench.THRESHOLDS, overlap=bench.OVERLAP, blinding=bench.BLINDING,
+                                    stacking="avg", batch_size=bench.BATCH, max_picks=bench.MAX_PICKS)
+    assert res.n_picks == int(direct["P"][2].sum()) > 0
+    for lab in direct:
+        for a, b, c in zip(res.first[lab], res.last[lab], direct[lab]):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, c)
 
 
 def test_native_readers_build_under_the_ports_build_directory(dev, tmp_path):

@@ -83,6 +83,11 @@ def test_forward_matches_jax_at_published_width(jax_and_port):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+@pytest.mark.parametrize("sr", [100.0, 50.0])
+def test_pred_sample_rate_matches_jax(sr):
+    assert PhaseNet(sampling_rate=sr).pred_sample_rate == JaxPhaseNet(sampling_rate=sr).pred_sample_rate == sr
+
+
 def test_oracle_state_dict_loads_strict(jax_and_port):
     _, _, port = jax_and_port
     oracle = PhaseNetTorch().eval()

@@ -288,7 +288,7 @@ def test_port_imports_no_jax():
         "             'utils.profiling', 'utils.plotting', 'acquisition', 'acquisition.events',\n"
         "             'acquisition.catalogs', 'acquisition.jma', 'acquisition.comcat', 'acquisition.download',\n"
         "             'acquisition.convert', 'acquisition.sac_convert', 'acquisition.hinet',\n"
-        "             'acquisition.hinet_net', 'parallel.mesh'):\n"
+        "             'acquisition.hinet_net', 'parallel.mesh', 'bench'):\n"
         "    assert 'volpick_tpu_torch.' + want in sys.modules, want\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'volpick_tpu')]\n"
         "print('BAD', sorted(bad))\n"

@@ -21,7 +21,8 @@ own copy.
                                   the native .npz.v1 export
 - ``volpick_tpu_torch.eval``   : evaluation targets, the task-0 sweep, tasks 1/2/3
 - ``volpick_tpu_torch.classical``: the Baer-Kradolfer and AR-AIC baseline pickers
-- ``python -m volpick_tpu_torch pick|train|targets|evaluate``: the command line
+- ``volpick_tpu_torch.bench``   : the headline benchmark, EQTransformer classify windows/s on the card
+- ``python -m volpick_tpu_torch pick|train|targets|evaluate|bench``: the command line
 """
 
 __version__ = "0.1.0"

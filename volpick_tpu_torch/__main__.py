@@ -6,8 +6,10 @@ pick      pick P/S phases on miniSEED/SAC files with a pretrained model
 train     train from a JSON config (same as python -m volpick_tpu_torch.train.trainer)
 targets   generate task0/task1/task23 evaluation target CSVs for a dataset
 evaluate  run the task0 threshold sweep + task1/2/3 scoring
+bench     run the CUDA throughput benchmark (volpick_tpu_torch/bench.py)
 
-`pick`, `train` and `evaluate` run on the card unless given `--device cpu`.
+`pick`, `train` and `evaluate` run on the card unless given `--device cpu`;
+`bench` runs on the card only.
 Reading a dataset directory needs h5py and pandas.
 """
 
@@ -96,6 +98,12 @@ def _cmd_evaluate(args):
                      indent=2, default=str))
 
 
+def _cmd_bench(args):
+    from volpick_tpu_torch.bench import main as bench_main
+
+    return bench_main()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="volpick_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -134,6 +142,9 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--device", default=None, help=device_help)
     p.set_defaults(fn=_cmd_evaluate)
+
+    p = sub.add_parser("bench", help="run the CUDA benchmark")
+    p.set_defaults(fn=_cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -109,6 +109,10 @@ class PhaseNet(nn.Module):
     def labels(self) -> str:
         return self.phases
 
+    @property
+    def pred_sample_rate(self) -> float:
+        return self.sampling_rate
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         def bn_relu(h, m):
             return F.relu(norm(m, h))

@@ -40,6 +40,11 @@ from volpick_tpu_torch.picker.annotate import WaveformPicker
 
 STATIONS, MINUTES, SR = 8, 20, 100.0
 WINDOW, OVERLAP, BLINDING, BATCH = 6000, 5500, (500, 500), 256
+# idle seconds a profiler session is held open before and after the work it
+# times: sessions of a few ms held open for none lost some or all of their
+# device records in 8 of 1000 on an H100, with 10 or 50 ms none of 1000 each
+# (scripts/profiler_probe.py --sessions 3000 --pads-ms 0,10,50)
+PROFILE_PAD_S = 0.05
 
 
 def bench_stream_array(seed: int = 0) -> np.ndarray:
@@ -87,22 +92,45 @@ def self_device_us(event) -> float:
     return float(v if v is not None else event.self_cuda_time_total)
 
 
-def profiled(fn):
-    """Run fn() once under ``torch.profiler`` → (host-clock ms with the
-    profiler on, summed kernel ms, ``key_averages()``)."""
+def device_rows(events) -> list:
+    """The device-side rows of ``key_averages()``: kernels, copies, fills."""
+    return [e for e in events if str(e.device_type).endswith("CUDA")]
+
+
+def profile_session(fn, pad_s: float = PROFILE_PAD_S):
+    """Run fn() once in one ``torch.profiler`` session → (host-clock ms with
+    the profiler on, ``key_averages()``), whatever the session recorded; the
+    session stays open `pad_s` seconds idle before and after fn()."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
+        time.sleep(pad_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+        time.sleep(pad_s)
+    return wall, prof.key_averages()
+
+
+def profiled(fn):
+    """Run fn() once under ``torch.profiler`` → (host-clock ms with the
+    profiler on, summed kernel ms, ``key_averages()``).
+
+    fn must run on the card: a session that recorded no device row measured
+    nothing, and raises ``RuntimeError`` rather than report 0 ms. The session
+    is held open ``PROFILE_PAD_S`` idle around fn(), so that no device
+    record near its edges is lost."""
+    wall, events = profile_session(fn)
+    rows = device_rows(events)
+    if not rows:
+        raise RuntimeError(
+            "torch.profiler: the session recorded no device activity (no CUDA row in "
+            f"key_averages(), {len(events)} host rows); its kernel time is unknown, not 0")
     # sum over the device-side kernel rows only: an op's row repeats the
     # time of the kernels it launched
-    device_ms = sum(self_device_us(e) for e in events if str(e.device_type).endswith("CUDA")) / 1e3
-    return wall, device_ms, events
+    return wall, sum(self_device_us(e) for e in rows) / 1e3, events
 
 
 def main() -> None:
