@@ -1010,7 +1010,7 @@ def pick_phase(dev, card, zero_counts, read_counts, data, t_start) -> dict:
     from volpick_tpu_torch.models.eqtransformer import EQTransformer
     from volpick_tpu_torch.ops.windows import window_starts
     from volpick_tpu_torch.picker import UTC, Stream, Trace, WaveformPicker
-    from volpick_tpu_torch.picker.stage_times import SR, profiled, self_device_us
+    from volpick_tpu_torch.picker.stage_times import SR, device_rows, profiled, self_device_us
     from volpick_tpu_torch.train.model_io import export_pretrained
 
     stations, _, n = data.shape
@@ -1157,8 +1157,8 @@ def pick_phase(dev, card, zero_counts, read_counts, data, t_start) -> dict:
             _, dev_ms, events = profiled(lambda: pk.classify_arrays(data, thresholds, **kw))
             conv_ms = cudnn_ms(events)
             k2_ms = sum(self_device_us(e) for e in events if "lstm_multi_kernel" in e.key) / 1e3
-            top = sorted(((self_device_us(e) / 1e3, e.count, e.key) for e in events
-                          if str(e.device_type).endswith("CUDA") and self_device_us(e) > 0), reverse=True)[:10]
+            top = sorted(((self_device_us(e) / 1e3, e.count, e.key) for e in device_rows(events)
+                          if self_device_us(e) > 0), reverse=True)[:10]
             timing[precision] = dict(windows_per_s=n_windows / med, wall_ms=med * 1e3, kernel_ms=dev_ms,
                                      conv_ms=conv_ms, k2_ms=k2_ms,
                                      top=[(key[:80], count, round(ms, 3)) for ms, count, key in top])
@@ -2145,7 +2145,7 @@ def main() -> None:
     from volpick_tpu_torch.ops.windows import window_starts
     from volpick_tpu_torch.picker import UTC, Stream, StreamingPicker, Trace, WaveformPicker
     from volpick_tpu_torch.picker.stage_times import (
-        SR, STATIONS, bench_stream_array, cuda_ms, profiled, self_device_us, smi)
+        SR, STATIONS, bench_stream_array, cuda_ms, device_rows, profiled, self_device_us, smi)
 
     name = torch.cuda.get_device_name(0)
     limit = smi("name,power.limit")
@@ -2852,7 +2852,7 @@ def main() -> None:
                                    ("matmuls + add + addattn", composed_events, composed_ms)):
                 optin_launches[what] = (
                     sum(e.count for e in evs if e.key.startswith("aten::")),
-                    sum(e.count for e in evs if str(e.device_type).endswith("CUDA")))
+                    sum(e.count for e in device_rows(evs)))
                 print(f"{label}: one classify_arrays, attention blocks through {what}: "
                       f"{optin_launches[what][0]} aten:: calls, {optin_launches[what][1]} kernel "
                       f"launches, summed kernel time {ms_:.2f} ms")

@@ -177,6 +177,11 @@ class _FakeSession:
     ([SimpleNamespace(key="aten::mm", device_type="DeviceType.CPU", self_device_time_total=0.0),
       SimpleNamespace(key="lstm_multi_kernel_bf16", device_type="DeviceType.CUDA",
                       self_device_time_total=12.0)], 0.012),
+    # the card's copy of a span's record_function range is no device work
+    ([SimpleNamespace(key="forward", device_type="DeviceType.CUDA", self_device_time_total=20.0,
+                      is_user_annotation=True),
+      SimpleNamespace(key="lstm_multi_kernel", device_type="DeviceType.CUDA", self_device_time_total=12.0,
+                      is_user_annotation=False)], 0.012),
 ])
 def test_profiled_refuses_a_session_without_device_rows(monkeypatch, rows, want):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)

@@ -1047,6 +1047,54 @@ def test_bench_throughput_picks_equal_classify(dev):
             np.testing.assert_array_equal(b, c)
 
 
+def test_classify_spans_hold_its_launches_and_time_the_device(dev):
+    """A classify_arrays of a full-width EQTransformer in a profiler session
+    of the device's activity (the benchmark's traced slice): at least 99.9%
+    of the CUDA launch calls the host made during the call lie inside its
+    root ``classify`` span, every device-timed span has a positive
+    ``device_ms``, and no span shows up as device activity."""
+    import re
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from volpick_tpu_torch.picker.stage_times import PROFILE_PAD_S
+    from volpick_tpu_torch.utils import profiling
+
+    launch = re.compile(r"^(cudaLaunchKernel(ExC)?|cudaLaunchCooperativeKernel|cuLaunchKernel(Ex)?|"
+                        r"cudaMemcpyAsync|cudaMemsetAsync)(_v\d+)?$")
+    rng = np.random.default_rng(5)
+    data = (rng.normal(size=(4, 3, 30000)) * 0.1).astype(np.float32)
+    picker = WaveformPicker(load_model("eqtransformer", seed=1, device=dev), device=dev)
+    kw = dict(overlap=5500, blinding=(500, 500), batch_size=64)
+    thr = {"Detection": 0.5, "P": 0.5, "S": 0.5}
+    picker.classify_arrays(data, thr, **kw)  # builds and loads the kernels
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.time_ns()
+        picker.classify_arrays(data, thr, **kw)
+        torch.cuda.synchronize()
+        t1 = time.time_ns()
+        time.sleep(PROFILE_PAD_S)
+    got = [s for s in profiling.spans() if s.start_ns >= t0]
+    root, = [s for s in got if s.parent is None]
+    assert root.name == "classify" and root.end_ns <= t1
+    events = list(prof.profiler.kineto_results.events())
+    calls = [e.start_ns() for e in events if e.device_type() != DeviceType.CUDA and launch.match(e.name())
+             and t0 <= e.start_ns() <= t1]
+    inside = sum(root.start_ns <= t <= root.end_ns for t in calls)
+    assert len(calls) > 100 and inside >= 0.999 * len(calls), (inside, len(calls))
+    timed = [s for s in got if s.name in ("condition", "forward", "stack", "triggers") or s.name.startswith("eqt.")]
+    assert {s.name for s in timed} == {"condition", "forward", "stack", "triggers", "eqt.encoder", "eqt.res_cnn",
+                                       "eqt.bilstm", "eqt.transformer", "eqt.branches"}
+    assert all(s.device_ms > 0 for s in timed), [(s.name, s.device_ms) for s in timed if not s.device_ms > 0]
+    assert all(s.device_ms is None for s in got if s not in timed)
+    device_names = {e.name() for e in events if e.device_type() == DeviceType.CUDA}
+    assert not device_names & {s.name for s in got}
+
+
 def test_native_readers_build_under_the_ports_build_directory(dev, tmp_path):
     """On the card machine too, g++ builds the miniSEED decoder from
     ``native/miniseed.cpp`` into ``build/volpick_tpu_torch/``."""

@@ -6,7 +6,9 @@
   plane without a name, Python frames, metadata and instant events) equals
   JAX's exactly, with and without a cut to the top rows; on a trace shaped
   like PyTorch's (every process named "python3", told apart by
-  ``process_labels``) the card's kernels form a plane of their own;
+  ``process_labels``) the card's kernels form a plane of their own, which
+  leaves out the card's copies of the program's spans
+  (``gpu_user_annotation``);
 - ``trace`` + ``summarize_trace`` of a CPU op read back a sorted table
   (``tests/test_utils_classical.py``'s trace test as the template);
 - ``device_memory_stats`` gives one None entry without a card, and
@@ -102,6 +104,26 @@ def test_summarize_trace_gives_each_labelled_process_a_plane(tmp_path):
                    "python3 (GPU 0)": [{"name": "lstm_multi_kernel", "total_ms": 0.023, "count": 2,
                                         "mean_us": 11.6}]}
     assert set(jprof.summarize_trace(tmp_path)) == {"python3"}
+
+
+def test_summarize_trace_keeps_span_ranges_out_of_the_kernel_plane(tmp_path):
+    """A CPU + CUDA session writes each ``record_function`` range (a span)
+    onto the card's stream too, covering the kernels it holds: it is left
+    out, so the card's plane counts no time twice and stays the one plane
+    of the card."""
+    trace = {"traceEvents": [
+        {"ph": "M", "name": "process_name", "pid": 0, "tid": 0, "args": {"name": "python3"}},
+        {"ph": "M", "name": "process_labels", "pid": 0, "tid": 0, "args": {"labels": "GPU 0"}},
+        {"ph": "X", "cat": "kernel", "name": "lstm_multi_kernel", "pid": 0, "tid": 7, "ts": 2.0, "dur": 11.5},
+        {"ph": "X", "cat": "kernel", "name": "lstm_multi_kernel", "pid": 0, "tid": 7, "ts": 20.0, "dur": 11.7},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "forward", "pid": 0, "tid": 7, "ts": 2.0,
+         "dur": 29.7},
+    ]}
+    with gzip.open(tmp_path / "h.trace.json.gz", "wt") as f:
+        json.dump(trace, f)
+    assert pprof.summarize_trace(tmp_path) == {
+        "python3 (GPU 0)": [{"name": "lstm_multi_kernel", "total_ms": 0.023, "count": 2, "mean_us": 11.6}],
+    }
 
 
 def test_trace_summary_of_a_cpu_op(tmp_path):

@@ -4,7 +4,10 @@ Port of ``volpick_tpu/models/eqtransformer.py``: encoder (7 convs + max
 pools) → 7 pre-activation res-CNN blocks → 3 BiLSTM blocks → 2 transformer
 blocks with dense additive attention → a detection decoder plus P/S pick
 branches (an LSTM and width-3 attention each), each with its own decoder and
-sigmoid head. ``fused`` selects among the JAX package's routes through that
+sigmoid head. While a ``torch.profiler`` session is active the eval forward
+records the spans ``eqt.encoder``, ``eqt.res_cnn``, ``eqt.bilstm``,
+``eqt.transformer`` and ``eqt.branches`` (``utils/profiling.py::span``),
+timed on the device. ``fused`` selects among the JAX package's routes through that
 program (``parse_fused``); the default, ``"plstm+bandattn"``, runs every LSTM
 recurrence through ``ops/cuda/lstm.py::lstm_branches`` (both pick LSTMs in one
 merged recurrence) and the pick attention over its band only. With ``"pattn"``
@@ -27,6 +30,7 @@ published ``volpick.pt.v1`` loads with ``load_state_dict(strict=True)``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -52,6 +56,7 @@ from volpick_tpu_torch.models.layers import (
 from volpick_tpu_torch.models.params import Conv, bn, norm, uniform
 from volpick_tpu_torch.ops.cuda.addattn import seq_self_attention as seq_self_attention_kernel
 from volpick_tpu_torch.ops.cuda.lstm import lstm_branches, lstm_branches_reference
+from volpick_tpu_torch.utils import profiling
 
 _BN_EPS = 1e-3
 _LN_EPS = 1e-14
@@ -434,59 +439,66 @@ class EQTransformer(nn.Module):
         fuse_lstm = "pallas" if "plstm" in parts else "lstm" in parts
         band_attn, p_attn, poly_up = "bandattn" in parts, "pattn" in parts, "polyup" in parts
         decode_mode = "grouped" if "grouped" in parts else "blockdiag" if "blockdiag" in parts else "branch"
+        # the eval forward's stages, timed where x lives
+        stage = (lambda name: contextlib.nullcontext()) if self.training else (
+            lambda name: profiling.span(name, x.device))
 
-        h = self.encode(x)
+        with stage("eqt.encoder"):
+            h = self.encode(x)
         if stop_after == "encoder":
             return h
-        for block in self.res_cnn_stack.members:
-            h = block(h, rate, generator)
+        with stage("eqt.res_cnn"):
+            for block in self.res_cnn_stack.members:
+                h = block(h, rate, generator)
         if stop_after == "res_cnn":
             return h
-        for block in self.bi_lstm_stack.members:
-            h = block(h, fuse_lstm, rate, generator)
+        with stage("eqt.bilstm"):
+            for block in self.bi_lstm_stack.members:
+                h = block(h, fuse_lstm, rate, generator)
         if stop_after == "bilstm":
             return h
-        h = self.transformer_d0(h, p_attn, rate, generator)
-        h = self.transformer_d(h, p_attn, rate, generator)
+        with stage("eqt.transformer"):
+            h = self.transformer_d0(h, p_attn, rate, generator)
+            h = self.transformer_d(h, p_attn, rate, generator)
         if stop_after == "transformer":
             return h
+        with stage("eqt.branches"):
+            def pick_attention(px, att):
+                if band_attn:
+                    return seq_self_attention_banded(px, att.params(), 3, eps=_ATTN_EPS)
+                return seq_self_attention_masked(px, att.params(), 3, eps=_ATTN_EPS)
 
-        def pick_attention(px, att):
-            if band_attn:
-                return seq_self_attention_banded(px, att.params(), 3, eps=_ATTN_EPS)
-            return seq_self_attention_masked(px, att.params(), 3, eps=_ATTN_EPS)
+            # detection branches take the trunk output; pick branches run an LSTM
+            # and local attention first (all pick LSTMs read the trunk: one merged
+            # recurrence when fuse_lstm)
+            branch_ins = [h for _ in self.detection_branches]
+            n = len(self.pick_lstms)
+            if fuse_lstm and n:
+                run = lstm_branches if fuse_lstm == "pallas" else lstm_branches_reference
+                px = run(
+                    h,
+                    torch.stack([m.weight_ih_l0 for m in self.pick_lstms]),
+                    torch.stack([m.weight_hh_l0 for m in self.pick_lstms]),
+                    torch.stack([m.bias_ih_l0 + m.bias_hh_l0 for m in self.pick_lstms]),
+                    reverse=(False,) * n,
+                ).chunk(n, dim=1)  # n x (B, 16, T)
+                branch_ins += [pick_attention(px[i], att) for i, att in enumerate(self.pick_attentions)]
+            else:
+                for m, att in zip(self.pick_lstms, self.pick_attentions):
+                    px = lstm(h, m.weight_ih_l0, m.weight_hh_l0, m.bias_ih_l0, m.bias_hh_l0,
+                              kernel=False)
+                    px = dropout(px, rate, generator, self.training)
+                    branch_ins.append(pick_attention(px, att))
+            if stop_after == "pick":
+                return tuple(branch_ins)
 
-        # detection branches take the trunk output; pick branches run an LSTM
-        # and local attention first (all pick LSTMs read the trunk: one merged
-        # recurrence when fuse_lstm)
-        branch_ins = [h for _ in self.detection_branches]
-        n = len(self.pick_lstms)
-        if fuse_lstm and n:
-            run = lstm_branches if fuse_lstm == "pallas" else lstm_branches_reference
-            px = run(
-                h,
-                torch.stack([m.weight_ih_l0 for m in self.pick_lstms]),
-                torch.stack([m.weight_hh_l0 for m in self.pick_lstms]),
-                torch.stack([m.bias_ih_l0 + m.bias_hh_l0 for m in self.pick_lstms]),
-                reverse=(False,) * n,
-            ).chunk(n, dim=1)  # n x (B, 16, T)
-            branch_ins += [pick_attention(px[i], att) for i, att in enumerate(self.pick_attentions)]
-        else:
-            for m, att in zip(self.pick_lstms, self.pick_attentions):
-                px = lstm(h, m.weight_ih_l0, m.weight_hh_l0, m.bias_ih_l0, m.bias_hh_l0,
-                          kernel=False)
-                px = dropout(px, rate, generator, self.training)
-                branch_ins.append(pick_attention(px, att))
-        if stop_after == "pick":
-            return tuple(branch_ins)
-
-        decoders = [getattr(self, dk) for dk, _ in self.detection_branches] + list(self.pick_decoders)
-        heads = [getattr(self, ck) for _, ck in self.detection_branches] + list(self.pick_convs)
-        if decode_mode == "branch":
-            preds = [self._decode(z, d, c, poly_up) for z, d, c in zip(branch_ins, decoders, heads)]
-        else:
-            preds = self._decode_merged(branch_ins, decoders, heads, decode_mode, poly_up)
-        return tuple(preds if logits else [torch.sigmoid(p) for p in preds])
+            decoders = [getattr(self, dk) for dk, _ in self.detection_branches] + list(self.pick_decoders)
+            heads = [getattr(self, ck) for _, ck in self.detection_branches] + list(self.pick_convs)
+            if decode_mode == "branch":
+                preds = [self._decode(z, d, c, poly_up) for z, d, c in zip(branch_ins, decoders, heads)]
+            else:
+                preds = self._decode_merged(branch_ins, decoders, heads, decode_mode, poly_up)
+            return tuple(preds if logits else [torch.sigmoid(p) for p in preds])
 
 
 class VolEQTransformer(EQTransformer):

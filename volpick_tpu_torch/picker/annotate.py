@@ -18,6 +18,13 @@ Per station batch (S, C, W_total) on the device:
 5. extract two-threshold triggers on every non-noise channel in one call.
 Only the fixed-size pick buffers come back to the host.
 
+While a ``torch.profiler`` session is active the picker records spans
+(``utils/profiling.py::span``): a root ``classify`` (or ``annotate``) a
+call, holding ``plan``, ``upload``, one ``step`` a forward (``condition``,
+``forward``, ``stack``; the flush window's with ``flush=1``), ``triggers``
+and ``readback``; ``condition``, ``forward``, ``stack`` and ``triggers``
+are timed on the device.
+
 Stream grouping and the result types are the port's own host layer,
 ``volpick_tpu_torch.core``; the picker reads a stream's attributes only, so
 any stream object with the same surface is accepted. With
@@ -68,6 +75,7 @@ from volpick_tpu_torch.ops.windows import (
     window_starts,
 )
 from volpick_tpu_torch.parallel.mesh import data_shard, mesh_device
+from volpick_tpu_torch.utils.profiling import span
 
 __all__ = ["WaveformPicker", "Stream", "Trace", "UTC"]
 
@@ -206,25 +214,32 @@ class WaveformPicker:
         l, r = blinding
         s, c = data.shape[0], data.shape[1]
 
+        dev = data.device
         if -(-window // stride) > 64:
             # non-uniform fallback: gather framing + scatter stacking
-            starts_t = torch.as_tensor(starts, device=data.device)
+            starts_t = torch.as_tensor(starts, device=dev)
             frames = frame_windows(data, starts_t, window).movedim(0, 1)
             frames = frames.reshape(s * n_win, c, window)
-            preds = torch.cat([
-                self._apply_model(self._condition(frames[j : j + chunk]))
-                for j in range(0, s * n_win, chunk)
-            ])
+            parts = []
+            for j in range(0, s * n_win, chunk):
+                rows = min(chunk, s * n_win - j)
+                with span("step", windows=rows, slots=rows):
+                    with span("condition", dev, windows=rows):
+                        fr = self._condition(frames[j : j + chunk])
+                    with span("forward", dev, windows=rows):
+                        parts.append(self._apply_model(fr))
+            preds = torch.cat(parts)
             preds = preds.reshape(s, n_win, preds.shape[1], window)
-            return overlap_stack(preds, starts_t, total, blinding=blinding, stacking=stacking)
+            with span("stack", dev):
+                return overlap_stack(preds, starts_t, total, blinding=blinding, stacking=stacking)
 
         k_ch = len(self._prob_channels())
         m = max(-(-window // stride), 1)
         wpc = max(1, chunk // s)  # window indices per step
         n_steps = -(-n_uni // wpc)
         wpc = max(1, -(-n_uni // n_steps))  # balanced steps
-        span = (wpc - 1) * stride + window
-        need = (n_steps - 1) * wpc * stride + span
+        span_len = (wpc - 1) * stride + window
+        need = (n_steps - 1) * wpc * stride + span_len
         datap = torch.nn.functional.pad(data, (0, need - total)) if need > total else data
         local_len = (wpc + m - 1) * stride
         acc_len = max((n_steps * wpc + m - 1) * stride, total)
@@ -234,48 +249,60 @@ class WaveformPicker:
         # the kernel
         span_cond = self.span_conditioning and window % stride == 0 and not self.use_pallas
 
-        acc = torch.zeros((s, k_ch, acc_len), dtype=torch.float32, device=data.device)
+        acc = torch.zeros((s, k_ch, acc_len), dtype=torch.float32, device=dev)
         for i in range(n_steps):
-            off = i * wpc * stride
-            sp = datap[..., off : off + span]  # (S, C, span)
-            if span_cond:
-                fr = condition_windows_from_span(
-                    sp, wpc, stride, window, detrend=self.detrend, norm=self.model.norm
-                )
-            else:
-                fr = self._condition(frame_windows_uniform(sp, wpc, stride, window))
-            pr = self._apply_model(fr.reshape(wpc * s, c, window)).reshape(wpc, s, k_ch, window)
-            # zero the padded window indices of the last step (their static
-            # stacking weight is zero too)
-            wmask = (i * wpc + torch.arange(wpc, device=data.device)) < n_uni
-            pr = pr * wmask.to(pr.dtype)[:, None, None, None]
-            loc, _ = overlap_stack_uniform(
-                pr.movedim(1, 0), stride, blinding=blinding, stacking=stacking, return_sums=True
-            )  # (S, K, local_len)
-            cur = acc[..., off : off + local_len]
-            if stacking == "avg":
-                cur += loc
-            else:
-                cur.copy_(torch.maximum(cur, loc))
+            with span("step", windows=min(wpc, n_uni - i * wpc) * s, slots=wpc * s):
+                off = i * wpc * stride
+                sp = datap[..., off : off + span_len]  # (S, C, span_len)
+                with span("condition", dev, windows=wpc * s):
+                    if span_cond:
+                        fr = condition_windows_from_span(
+                            sp, wpc, stride, window, detrend=self.detrend, norm=self.model.norm
+                        )
+                    else:
+                        fr = self._condition(frame_windows_uniform(sp, wpc, stride, window))
+                with span("forward", dev, windows=wpc * s):
+                    pr = self._apply_model(fr.reshape(wpc * s, c, window))
+                with span("stack", dev):
+                    pr = pr.reshape(wpc, s, k_ch, window)
+                    # zero the padded window indices of the last step (their
+                    # static stacking weight is zero too)
+                    wmask = (i * wpc + torch.arange(wpc, device=dev)) < n_uni
+                    pr = pr * wmask.to(pr.dtype)[:, None, None, None]
+                    loc, _ = overlap_stack_uniform(
+                        pr.movedim(1, 0), stride, blinding=blinding, stacking=stacking, return_sums=True
+                    )  # (S, K, local_len)
+                    cur = acc[..., off : off + local_len]
+                    if stacking == "avg":
+                        cur += loc
+                    else:
+                        cur.copy_(torch.maximum(cur, loc))
 
         wgt = uniform_stack_weights(n_uni, stride, window, blinding, acc_len)
         if flush_start is not None:
             # the flush window ends at the stream end: a static-offset add
-            fl = data[..., flush_start : flush_start + window]
-            fmask = np.zeros((window,), dtype=np.float32)
-            fmask[l : window - r if r else window] = 1.0
-            flc = self._apply_model(self._condition(fl)) * torch.as_tensor(fmask, device=data.device)
-            cur = acc[..., flush_start : flush_start + window]
-            if stacking == "avg":
-                cur += flc
-                wgt = wgt.copy()
-                wgt[flush_start : flush_start + window] += fmask
-            else:
-                cur.copy_(torch.maximum(cur, flc))
+            with span("step", windows=s, slots=s, flush=1):
+                fl = data[..., flush_start : flush_start + window]
+                fmask = np.zeros((window,), dtype=np.float32)
+                fmask[l : window - r if r else window] = 1.0
+                with span("condition", dev, windows=s):
+                    fl = self._condition(fl)
+                with span("forward", dev, windows=s):
+                    flc = self._apply_model(fl)
+                with span("stack", dev):
+                    flc = flc * torch.as_tensor(fmask, device=dev)
+                    cur = acc[..., flush_start : flush_start + window]
+                    if stacking == "avg":
+                        cur += flc
+                        wgt = wgt.copy()
+                        wgt[flush_start : flush_start + window] += fmask
+                    else:
+                        cur.copy_(torch.maximum(cur, flc))
         acc = acc[..., :total]
-        if stacking == "avg":
-            return acc / torch.as_tensor(np.maximum(wgt[:total], 1.0), device=data.device)
-        return acc
+        if stacking != "avg":
+            return acc
+        with span("stack", dev):
+            return acc / torch.as_tensor(np.maximum(wgt[:total], 1.0), device=dev)
 
     # ------------------------------------------------------------- array level
     def _plan_windows(self, data: np.ndarray, overlap: int):
@@ -346,6 +373,12 @@ class WaveformPicker:
         processed as overlapping stride-aligned segments with a full window
         of context on each side; a pick belongs to the segment whose core
         holds its peak, so the result matches one pass over the whole stream."""
+        with span("classify", stations=data.shape[0], samples=data.shape[-1]) as root:
+            return self._classify_arrays(
+                root, data, thresholds, overlap, blinding, stacking, batch_size, max_picks, max_span)
+
+    def _classify_arrays(self, root, data, thresholds, overlap, blinding, stacking, batch_size,
+                         max_picks, max_span) -> Dict[str, tuple]:
         s, c, total = data.shape
         if batch_size is None:
             batch_size = self._default_batch_size()
@@ -356,6 +389,7 @@ class WaveformPicker:
         if total > max_span:
             ctx = (-(-window // stride)) * stride  # window rounded up to the grid
             core = max(((max_span - 2 * ctx) // stride) * stride, stride)
+            root.count(segments=-(-total // core))
             merged: Dict[str, list] = {}
             seg_start = 0
             while seg_start < total:
@@ -378,28 +412,33 @@ class WaveformPicker:
                 label: tuple(np.concatenate([seg[i] for seg in segs], axis=1) for i in range(5))
                 for label, segs in merged.items()
             }
-        data, padded_total, starts, flush_start = self._plan_windows(data, overlap)
-        if max_picks is None:
-            max_picks = min(max(32, padded_total // window * 4), 4096)
-        channels = self._prob_channels()
-        # the noise row never triggers; any other missing label is a caller
-        # mistake and fails loudly
-        thr = [thresholds.get(lab, 2.0) if lab == "N" else thresholds[lab] for lab in channels]
-        mine = self._my_stations(data)
+        with span("plan"):
+            data, padded_total, starts, flush_start = self._plan_windows(data, overlap)
+            if max_picks is None:
+                max_picks = min(max(32, padded_total // window * 4), 4096)
+            channels = self._prob_channels()
+            # the noise row never triggers; any other missing label is a caller
+            # mistake and fails loudly
+            thr = [thresholds.get(lab, 2.0) if lab == "N" else thresholds[lab] for lab in channels]
+            mine = self._my_stations(data)
+        root.count(windows=len(mine) * len(starts))
         with inference_work(self.device):
-            curves = self._curves(
-                self._to_device(mine), starts, padded_total, tuple(blinding), stacking,
-                batch_size, stride, flush_start,
-            )
+            with span("upload", bytes=mine.size * 4):
+                x = self._to_device(mine)
+            curves = self._curves(x, starts, padded_total, tuple(blinding), stacking, batch_size, stride,
+                                  flush_start)
             trig = [(label, ki, t) for ki, (label, t) in enumerate(zip(channels, thr)) if label != "N"]
-            flat = torch.cat([curves[:, ki] for _, ki, _ in trig], dim=0)
-            thr_rows = torch.cat([
-                torch.full((len(mine),), t, dtype=torch.float32, device=self.device) for _, _, t in trig
-            ])
-            res = extract_triggers_batched(flat, thr_rows, max_picks=max_picks)
+            with span("triggers", self.device, rows=len(trig) * len(mine), max_picks=max_picks):
+                flat = torch.cat([curves[:, ki] for _, ki, _ in trig], dim=0)
+                thr_rows = torch.cat([
+                    torch.full((len(mine),), t, dtype=torch.float32, device=self.device) for _, _, t in trig
+                ])
+                res = extract_triggers_batched(flat, thr_rows, max_picks=max_picks)
             # rows (label, station): gathered along the station axis
-            res = [self._gather_stations(a.reshape(len(trig), len(mine), -1), 1).reshape(len(trig) * s, -1)
-                   .cpu().numpy() for a in res]
+            with span("readback") as back:
+                res = [self._gather_stations(a.reshape(len(trig), len(mine), -1), 1)
+                       .reshape(len(trig) * s, -1).cpu().numpy() for a in res]
+                back.count(bytes=sum(a.nbytes for a in res))
         return {
             label: tuple(a[j * s : (j + 1) * s] for a in res) for j, (label, _, _) in enumerate(trig)
         }
@@ -420,13 +459,20 @@ class WaveformPicker:
         window = self.in_samples
         if overlap is None:
             overlap = window // 2
-        data, padded_total, starts, flush_start = self._plan_windows(data, overlap)
-        with inference_work(self.device):
-            curves = self._curves(
-                self._to_device(self._my_stations(data)), starts, padded_total, tuple(blinding), stacking,
-                batch_size, window - overlap, flush_start,
-            )
-            return self._gather_stations(curves, 0).cpu().numpy()[..., :total]
+        with span("annotate", stations=data.shape[0], samples=total) as root:
+            with span("plan"):
+                data, padded_total, starts, flush_start = self._plan_windows(data, overlap)
+                mine = self._my_stations(data)
+            root.count(windows=len(mine) * len(starts))
+            with inference_work(self.device):
+                with span("upload", bytes=mine.size * 4):
+                    x = self._to_device(mine)
+                curves = self._curves(x, starts, padded_total, tuple(blinding), stacking, batch_size,
+                                      window - overlap, flush_start)
+                with span("readback") as back:
+                    out = self._gather_stations(curves, 0).cpu().numpy()
+                    back.count(bytes=out.nbytes)
+            return out[..., :total]
 
     # ------------------------------------------------------------ stream level
     def _group_arrays(self, stream: Stream):

@@ -9,12 +9,12 @@ EQTransformer at the published width, float32, and prints:
 
 - the host-clock time of classify_arrays (median of `repeats` after one
   warm-up), with the card's name, power limit, SM clock and power draw;
-- CUDA-event times of each stage at the shapes of one step (span
-  conditioning, the EQT forward split into encoder / res-CNN / BiLSTM /
-  transformer / the rest, overlap stacking) and of trigger extraction;
-- one classify_arrays under ``torch.profiler``: the summed device time, the
-  idle share against the unprofiled median, and the top kernels (the full
-  table goes to `--out`).
+- one classify_arrays under ``torch.profiler``: its summed kernel time, the
+  program's spans of that call by name (count, host ms, device ms and the
+  summed counts: windows, slots, bytes, rows, ...) of the picker's plan,
+  upload, steps, conditioning, forward, stacking, triggers, read-back and
+  the EQT forward's stages (``utils/profiling.py::span``), and the top
+  kernels (the full table goes to `--out`).
 
 ``--optin`` takes EQTransformer's opt-in kernel route instead of the default
 one: ``fused="plstm+bandattn+pattn"`` (additive-attention kernel),
@@ -33,10 +33,8 @@ import numpy as np
 import torch
 
 from volpick_tpu_torch.models import load_model
-from volpick_tpu_torch.ops.signal import condition_windows_from_span
-from volpick_tpu_torch.ops.triggers import extract_triggers_batched
-from volpick_tpu_torch.ops.windows import frame_windows_uniform, overlap_stack_uniform
 from volpick_tpu_torch.picker.annotate import WaveformPicker
+from volpick_tpu_torch.utils import profiling
 
 STATIONS, MINUTES, SR = 8, 20, 100.0
 WINDOW, OVERLAP, BLINDING, BATCH = 6000, 5500, (500, 500), 256
@@ -93,8 +91,11 @@ def self_device_us(event) -> float:
 
 
 def device_rows(events) -> list:
-    """The device-side rows of ``key_averages()``: kernels, copies, fills."""
-    return [e for e in events if str(e.device_type).endswith("CUDA")]
+    """The device-side rows of ``key_averages()``: kernels, copies, fills;
+    not the card's copies of ``record_function`` ranges (the program's
+    spans), which would count their kernels' time again."""
+    return [e for e in events
+            if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)]
 
 
 def profile_session(fn, pad_s: float = PROFILE_PAD_S):
@@ -150,7 +151,6 @@ def main() -> None:
     model = load_model("eqtransformer", seed=0, device=dev,
                        fused="plstm+bandattn+pattn" if args.optin else None)
     picker = WaveformPicker(model, device=dev, use_pallas=args.optin)
-    p_attn = "pattn" in model.fused.split("+")
     print(f"route: fused={model.fused!r}, use_pallas={picker.use_pallas}, trigger method "
           f"{os.environ.get('VOLPICK_TRIGGER_METHOD', 'pallas_full')!r}")
     data = bench_stream_array()
@@ -176,59 +176,26 @@ def main() -> None:
     print(f"nvidia-smi after the timed runs (clocks.sm, power.draw, temperature): "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
-    # ---- per-stage CUDA events at the shapes of one step
-    wpc = BATCH // STATIONS
-    wpc = -(-n_uni // -(-n_uni // wpc))  # balanced windows per step, as _curves does
-    span = (wpc - 1) * stride + WINDOW
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    with torch.inference_mode():
-        sp = torch.as_tensor(data[..., :span], device=dev)
-        if args.optin:  # frame, then the conditioning kernel
-            condition = lambda: picker._condition(frame_windows_uniform(sp, wpc, stride, WINDOW))
-        else:
-            condition = lambda: condition_windows_from_span(
-                sp, wpc, stride, WINDOW, detrend=True, norm="peak")
-        x = condition().reshape(wpc * STATIONS, 3, WINDOW)
-
-        def members(blocks):
-            def run(h):
-                for b in blocks:
-                    h = b(h)
-                return h
-            return run
-
-        stages = [
-            ("encoder", model.encode),
-            ("res_cnn", members(model.res_cnn_stack.members)),
-            ("bilstm", members(model.bi_lstm_stack.members)),
-            ("transformer", lambda h: model.transformer_d(model.transformer_d0(h, p_attn), p_attn)),
-        ]
-        cond_ms = cuda_ms(condition)
-        fwd_ms = cuda_ms(lambda: model(x))
-        split, h = {}, x
-        for name, fn in stages:
-            split[name] = cuda_ms(lambda: fn(h))
-            h = fn(h)
-        split["pick LSTM + banded attention + 3 decoders + heads (forward - trunk)"] = (
-            fwd_ms - sum(split.values()))
-        pr = torch.stack(model(x), dim=1).reshape(wpc, STATIONS, 3, WINDOW).movedim(1, 0)
-        stack_ms = cuda_ms(lambda: overlap_stack_uniform(
-            pr, stride, blinding=BLINDING, stacking="avg", return_sums=True))
-        # channel-major rows with per-row thresholds, as classify_arrays batches them
-        flat = torch.as_tensor(curves.transpose(1, 0, 2).reshape(-1, data.shape[-1]), device=dev)
-        rows = torch.as_tensor(np.repeat(list(thr.values()), STATIONS).astype(np.float32), device=dev)
-        k = min(max(32, data.shape[-1] // WINDOW * 4), 4096)
-        trig_ms = cuda_ms(lambda: extract_triggers_batched(flat, rows, max_picks=k))
-    print(f"per step ({wpc * STATIONS} windows, {-(-n_uni // wpc)} steps): condition {cond_ms:.3f} ms, "
-          f"forward {fwd_ms:.3f} ms, stack {stack_ms:.3f} ms; "
-          f"trigger ({flat.shape[0]} x {flat.shape[1]}, K={k}) {trig_ms:.3f} ms")
-    print("forward stages ms: " + ", ".join(f"{n} {v:.3f}" for n, v in split.items()))
-
-    # ---- one classify_arrays under the profiler
+    # ---- one classify_arrays under the profiler, with the program's spans
+    t0 = time.time_ns()
     wall, device_ms, events = profiled(lambda: picker.classify_arrays(data, thr, **kw))
     print(f"profiled classify_arrays: wall {wall:.2f} ms (profiler on), summed kernel time "
-          f"{device_ms:.2f} ms; idle share against the unprofiled median "
-          f"{max(0.0, 1 - device_ms / med):.3f}")
+          f"{device_ms:.2f} ms")
+    by_name = {}  # name: [count, host ms, device ms or None, summed counts]
+    for sp in profiling.spans():
+        if sp.start_ns >= t0:
+            row = by_name.setdefault(sp.name, [0, 0.0, None, {}])
+            row[0] += 1
+            row[1] += (sp.end_ns - sp.start_ns) / 1e6
+            if sp.device_ms is not None:
+                row[2] = (row[2] or 0.0) + sp.device_ms
+            for k, v in sp.counts.items():
+                row[3][k] = row[3].get(k, 0) + v
+    print("spans of that call (name, count, host ms, device ms, summed counts; "
+          "step windows / slots is the share of the forwards' batch that is real windows):")
+    for name, (n, host_ms, dev_ms, counts) in by_name.items():
+        print(f"  {name:16s} {n:5d} {host_ms:10.3f} {'-' if dev_ms is None else f'{dev_ms:10.3f}':>10s} "
+              + " ".join(f"{k}={v}" for k, v in counts.items()))
     table = events.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=80)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

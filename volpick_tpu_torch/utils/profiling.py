@@ -11,22 +11,33 @@
   with a CUDA `device` it synchronises the card before reading the clock;
 - `enable_nan_debugging()`: autograd's anomaly mode, so the backward op that
   first makes a NaN raises with the traceback of its forward;
-- `device_memory_stats()`: ``torch.cuda.memory_stats`` of every card.
+- `device_memory_stats()`: ``torch.cuda.memory_stats`` of every card;
+- `span(name, device=None, **counts)`: a span of the program's work, kept
+  while a ``torch.profiler`` session is active (`trace(dir)` is one), and
+  `spans()`: the spans kept, oldest first.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gzip
+import itertools
 import json
 import os
 import shutil
 import socket
+import threading
 import time
+from collections import deque
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# spans kept, oldest first: a traced request of the archive cells opens
+# ~420, a second of the live cell ~400
+SPAN_BUFFER = 1 << 15
 
 
 @contextlib.contextmanager
@@ -62,8 +73,11 @@ def summarize_trace(log_dir, top: int = 40) -> Dict:
     the report. A PyTorch trace names the host and every card after the
     program ("python3") and tells them apart by ``process_labels``; where a
     process has labels they follow its name ("python3 (CPU)", "python3
-    (GPU 0)"), so the card's kernels form a plane of their own. The JAX
-    package's traces carry no labels, and there the planes are the same."""
+    (GPU 0)"), so the card's kernels form a plane of their own. The card's
+    copies of ``record_function`` ranges (``cat`` "gpu_user_annotation": the
+    program's spans) each cover the kernels they hold, and are left out, so
+    that the card's plane counts no time twice. The JAX package's traces
+    carry neither, and there the planes are the same."""
     from collections import defaultdict
 
     traces = sorted(Path(log_dir).rglob("*.trace.json.gz"), key=lambda p: p.stat().st_mtime)
@@ -83,7 +97,7 @@ def summarize_trace(log_dir, top: int = 40) -> Dict:
             plane_names[pid] = f"{plane_names[pid]} ({label})"
     acc: Dict = defaultdict(lambda: defaultdict(lambda: [0.0, 0]))
     for e in events:
-        if e.get("ph") != "X":
+        if e.get("ph") != "X" or e.get("cat") == "gpu_user_annotation":
             continue
         plane = plane_names.get(e.get("pid"), str(e.get("pid")))
         name = e.get("name", "?")
@@ -164,3 +178,117 @@ class StepTimer:
     def save(self, path):
         with open(path, "w") as f:
             json.dump(self.summary(), f, indent=2)
+
+
+class _NoSpan:
+    """What `span` returns while nothing records: one shared context that
+    does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+    def count(self, **counts):
+        pass
+
+
+_NO_SPAN = _NoSpan()
+_SPANS: deque = deque(maxlen=SPAN_BUFFER)
+_ids = itertools.count(1)
+
+
+class _Open(threading.local):
+    def __init__(self):
+        self.stack: List["Span"] = []
+
+
+_open = _Open()
+
+
+class Span:
+    """One span of the program's work: ``name``; ``request``, the id of its
+    root span (a span opened outside any other is a root, its own request);
+    ``id``; ``parent``, the id of the span it was opened in (None for a
+    root); ``start_ns`` / ``end_ns`` on ``time.time_ns()``, the clock of
+    ``torch.profiler``'s events, taken outside its ``record_function`` so
+    that the span encloses that event; ``counts`` (windows, bytes, ...).
+
+    ``device_ms`` is None for a span on the host or on a CPU device. A span
+    on a CUDA device records a CUDA event on the current stream at each end,
+    and ``device_ms`` is the time between them: from where the stream
+    reached the first (the end of the work before the span, or the host's
+    record, whichever came later) to the end of the span's last kernel, the
+    device's idle time inside included. Read it after synchronising the
+    device."""
+
+    __slots__ = ("name", "request", "id", "parent", "start_ns", "end_ns", "counts",
+                 "_stream", "_start_ev", "_end_ev", "_rf")
+
+    def __init__(self, name: str, device, counts: dict):
+        self.name = name
+        self.counts = counts
+        self.end_ns = None
+        self._stream = None
+        self._start_ev = self._end_ev = None
+        if device is not None and torch.device(device).type == "cuda":
+            self._stream = torch.cuda.current_stream(device)
+
+    def count(self, **counts):
+        """Add counts known only once the span is open."""
+        self.counts.update(counts)
+
+    def __enter__(self):
+        stack = _open.stack
+        parent = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = parent.id if parent is not None else None
+        self.request = parent.request if parent is not None else self.id
+        if self._stream is not None:
+            self._start_ev = torch.cuda.Event(enable_timing=True)
+            self._start_ev.record(self._stream)
+        stack.append(self)
+        _SPANS.append(self)
+        self.start_ns = time.time_ns()
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._rf.__exit__(exc_type, exc, tb)
+        self._rf = None
+        self.end_ns = time.time_ns()
+        _open.stack.pop()
+        if self._stream is not None:
+            self._end_ev = torch.cuda.Event(enable_timing=True)
+            self._end_ev.record(self._stream)
+        return None
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        if self._end_ev is None:
+            return None
+        return self._start_ev.elapsed_time(self._end_ev)
+
+
+def span(name: str, device=None, **counts):
+    """`with span("forward", x.device, windows=n):` a span of the program's
+    work, kept while a ``torch.profiler`` session is active and read back
+    by `spans()`. It also enters ``torch.profiler.record_function(name)``,
+    so a Chrome trace of `trace(dir)` shows it on the host and on the
+    card's stream. With a CUDA `device` it times its work on the device
+    (``Span.device_ms``) by CUDA events on the current stream. It never
+    synchronises the device. Outside a profiler session it
+    returns one shared context that does nothing, after one flag check."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return Span(name, device, counts)
+
+
+def spans() -> List[Span]:
+    """The closed spans kept (the last ``SPAN_BUFFER`` opened), oldest
+    first. A reader takes those of its time window."""
+    return [s for s in list(_SPANS) if s.end_ns is not None]
