@@ -47,8 +47,13 @@
    calls), the latter also against the former on the same data; K6
    res_cnn_stack at (232, 64, 47) within 3e-4 of its twin and of the model's
    res-CNN section, fed the encoder's output for the bench stream's steps
-   (phase 4b). Beside each kernel it prints the least time the card could
-   take for the same work (bytes over 3.35 TB/s, float32 operations over 67
+   (phase 4b); K8 upconv_relu at each of the seven decoder layers of the
+   full-width EQTransformer at B = 256, 208 and 16 within 1e-5 of the
+   layer's largest output, timed at B = 256 by its profiler row beside the
+   twin's time by CUDA events and the summed device time of the twin's
+   kernels (the cuDNN route, a yardstick only). Beside each kernel it
+   prints the least time the card could take for the same work (bytes
+   over 3.35 TB/s, float32 operations over 67
    TFLOP/s, transcendentals over the special-function units' 67 / 16 T/s; the
    largest of the three) and, for K2 and K7, the time of the one PyTorch call
    that computes the same function (torch.nn.LSTM(bidirectional=True);
@@ -82,9 +87,10 @@
      fused="plstm+bandattn+pattn", WaveformPicker(use_pallas=True) and
      VOLPICK_TRIGGER_METHOD=pallas (set for this path only);
    each must pick and launch exactly the kernels of its path (K1 once a
-   call, on the opt-in route K3 instead; K2 4 times a forward on the EQT
-   family; K7 n_layers times a forward under "pallas"; on the opt-in route
-   K5 twice a forward and K4 once a forward; never otherwise). The opt-in
+   call, on the opt-in route K3 instead; K2 4 times a forward and K8 7
+   times a decoder a forward on the EQT family; K7 n_layers times a
+   forward under "pallas"; on the opt-in route K5 twice a forward and K4
+   once a forward; never otherwise). The opt-in
    route's curves must lie within 1e-4 of the default EQTransformer path's
    (same weights), and on them method="pallas" must give exactly the picks
    of method="pallas_full";
@@ -307,6 +313,9 @@ MHA16_V_SHARE = 2.0 ** -8
 K2_BF16_ABS = 2.0 ** -9
 PICK_SAMPLES, PICK_VALUE = 10, 0.05
 COND_TOL, ATT_TOL, RES_TOL = 2e-5, 1e-5, 3e-4
+# K8 against its twin: the folded taps sum the same products in another
+# order, so a layer's outputs differ by rounding of its largest terms
+UPCONV_TOL, UPCONV_BATCHES = 1e-5, (256, 208, 16)
 # phase 7: a synthetic pool on the card, about TRAIN_STEPS steps of the
 # training config, the card-vs-CPU gradient on GRAD_WINDOWS windows
 TRAIN_CONFIG = "examples/configs/eqtransformer_vcseis.json"
@@ -505,6 +514,75 @@ def classify_seconds(picker, data, thresholds, kw) -> float:
     picker.classify_arrays(data, thresholds, **kw)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def decoder_layers(model):
+    """(I, O, K, T in, crop) of each decoder layer of an EQTransformer, at its
+    in_samples: the encoder's pooled length doubles layer by layer, cropped
+    by one where the encoder padded."""
+    from volpick_tpu_torch.models.eqtransformer import _encoder_pool_paddings
+
+    t = model.in_samples
+    for pad in _encoder_pool_paddings(model.in_samples, len(model.filters)):
+        t = (t + pad) // 2
+    layers = []
+    for i, conv in enumerate(model.decoder_d.convs):
+        o, c, k = conv.weight.shape
+        crop = int(i in model._crops)
+        layers.append((c, o, k, t, crop))
+        t = 2 * t - crop
+    return layers
+
+
+def upconv_rows(dev, rng, batches=UPCONV_BATCHES):
+    """K8 upconv_relu at every decoder layer of the full-width EQTransformer:
+    the kernel against its twin at each batch of ``batches`` (within
+    UPCONV_TOL of the layer's largest output), and at the first batch its
+    profiler row (20 calls), its time by CUDA events, the twin's by CUDA
+    events, the summed device time of the twin's kernels (the cuDNN route:
+    the upsampling copy, the pad copy, cuDNN's conv, the ReLU; a yardstick
+    only) and the bound of the folded work. → (rows, largest relative error)."""
+    from volpick_tpu_torch.models import load_model
+    from volpick_tpu_torch.ops.cuda import upconv as cuda_upconv
+    from volpick_tpu_torch.picker.stage_times import cuda_ms, profiled, self_device_us
+
+    model = load_model("eqtransformer", seed=0, device="cpu")
+    rows, worst = [], 0.0
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.inference_mode():
+        for li, (c, o, k, t, crop) in enumerate(decoder_layers(model)):
+            w = torch.as_tensor((rng.normal(size=(o, c, k)) / np.sqrt(c * k)).astype(np.float32), device=dev)
+            b = torch.as_tensor(rng.normal(size=o).astype(np.float32) * 0.1, device=dev)
+            for bi, nb in enumerate(batches):
+                x = torch.as_tensor(np.abs(rng.normal(size=(nb, c, t))).astype(np.float32), device=dev)
+                got = cuda_upconv.upconv_relu(x, w, b, crop)
+                want = cuda_upconv.upconv_relu_reference(x, w, b, crop)
+                torch.cuda.synchronize()
+                if got.shape != want.shape:
+                    fail(f"upconv_relu L{li} B={nb}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+                err = float((got - want).abs().max() / want.abs().max())
+                worst = max(worst, err)
+                if not err <= UPCONV_TOL:
+                    fail(f"upconv_relu L{li} B={nb} (I {c}, O {o}, K {k}, T {t}, crop {crop}): "
+                         f"max |d| {err:.3e} of the largest output > {UPCONV_TOL}")
+                if bi:
+                    continue
+                _, twin_dev_ms, _ = profiled(lambda: [cuda_upconv.upconv_relu_reference(x, w, b, crop)
+                                                      for _ in range(20)])
+                _, _, events = profiled(lambda: [cuda_upconv.upconv_relu(x, w, b, crop) for _ in range(20)])
+                row_ms = sum(self_device_us(e) for e in events if "upconv_relu_kernel" in e.key) / 2e4
+                n_out = 2 * t - crop
+                # folded: p + 1 taps a parity, a multiply-add each
+                flops = 2.0 * nb * o * n_out * c * ((k - 1) // 2 + 1)
+                bnd = bound(nbytes(x, w, b) + nb * o * n_out * 4, flops=flops)
+                plan = cuda_upconv.upconv_plan(nb, c, o, t, k, n_sm)
+                rows.append({"layer": li, "b": nb, "i": c, "o": o, "k": k, "t": t, "crop": crop,
+                             "ms": row_ms, "event_ms": cuda_ms(lambda: cuda_upconv.upconv_relu(x, w, b, crop)),
+                             "plain_ms": cuda_ms(lambda: cuda_upconv.upconv_relu_reference(x, w, b, crop)),
+                             "library_ms": twin_dev_ms / 20, "bound_ms": bnd[0], "bound_by": bnd[1],
+                             "x_bound": row_ms / bnd[0], "flops": flops, "max_rel_err": err,
+                             "plan": dict(zip(("nt", "tiles", "cblocks", "threads", "shared_bytes"), plan))})
+    return rows, worst
 
 
 def stretch_heads(model, samples) -> None:
@@ -2140,6 +2218,7 @@ def main() -> None:
     from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
     from volpick_tpu_torch.ops.cuda import rescnn as cuda_rescnn
     from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
+    from volpick_tpu_torch.ops.cuda import upconv as cuda_upconv
     from volpick_tpu_torch.ops.signal import condition_windows_from_span
     from volpick_tpu_torch.ops.triggers import extract_triggers_batched, trigger_onset_numpy
     from volpick_tpu_torch.ops.windows import window_starts
@@ -2536,6 +2615,19 @@ def main() -> None:
               f"tanh takes two: {2 * att_ops['sfu'] / PEAK_SFU * 1e3:.4f} ms), no library call "
               "computes it")
 
+    # ---- 3, K8: upconv_relu at each decoder layer of the full-width EQTransformer
+    up_rows, up_err = upconv_rows(dev, rng)
+    for r in up_rows:
+        print(f"K8 upconv_relu L{r['layer']} (B {r['b']}, I {r['i']}, O {r['o']}, K {r['k']}, T {r['t']}, "
+              f"crop {r['crop']}; plan {r['plan']}) on {card}: kernel {r['ms']:.4f} ms (its row under "
+              f"torch.profiler), {r['event_ms']:.4f} ms by CUDA events, twin {r['plain_ms']:.4f} ms by CUDA "
+              f"events, the cuDNN route's kernels {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {r['x_bound']:.2f}x); max |d| {r['max_rel_err']:.2e} of the largest output")
+    print(f"K8 upconv_relu: a decoder at B {UPCONV_BATCHES[0]}: kernel {sum(r['ms'] for r in up_rows):.4f} ms, "
+          f"cuDNN route {sum(r['library_ms'] for r in up_rows):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in up_rows):.4f} ms; every layer at B {UPCONV_BATCHES} within "
+          f"{UPCONV_TOL} of its largest output (worst {up_err:.2e})")
+
     # ---- 3, bf16: the bf16 entries of K2, K5 and K7 at the same shapes
     # against their bf16 twins, each by its stated rule, each timed by its
     # profiler row beside the earlier bf16 design built in step 2
@@ -2763,6 +2855,7 @@ def main() -> None:
         return want
 
     by_path, rates, thresholds_of, device_of, curves_of, optin_kernel_ms = {}, {}, {}, {}, {}, {}
+    upconv_of = {}  # label -> K8 launches of its classify
     bf16_of = {}  # label -> the bf16 run of phase 5
     optin_launches = {}  # attention route -> (aten:: calls, kernel launches) of one classify_arrays
     ops_of = {}
@@ -2784,10 +2877,14 @@ def main() -> None:
         hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
         curves_of[label] = curves
         zero_counts()
+        cuda_upconv.launches = 0
         out = picker.classify(stream, P_threshold=thr["P"], S_threshold=thr["S"],
                               detection_threshold=det, **kw)
         torch.cuda.synchronize()
         launches = read_counts()
+        # K8: each decoder layer of the EQT family's float32 forwards, 7 a decoder
+        n_dec = len(model.detection_branches) + len(model.pick_decoders) if arch.endswith("eqtransformer") else 0
+        upconv_of[label] = cuda_upconv.launches
         hook.remove()
         n_fwd = forwards[0]
         by_path[label] = launches
@@ -2799,6 +2896,8 @@ def main() -> None:
         want = want_launches(label, arch, margs, model, n_fwd, bf16=False)
         if n_fwd < 1 or launches != want:
             fail(f"{label}: launches {launches}, want {want}")
+        if upconv_of[label] != 7 * n_dec * n_fwd:
+            fail(f"{label}: upconv_relu launched {upconv_of[label]} times, want {7 * n_dec * n_fwd}")
         if len(out.picks) == 0:
             fail(f"{label}: classify returned no picks")
 
@@ -2819,7 +2918,7 @@ def main() -> None:
         _, dev_ms, events = profiled(lambda: picker.classify_arrays(data, thresholds, **kw))
         own = {kn: sum(self_device_us(e) for e in events if kn in e.key) / 1e3
                for kn in ("mha_kernel", "addattn_kernel", "condition_kernel", "trigger_scan_kernel",
-                          "trigger_extract_kernel", "lstm_multi_kernel")}
+                          "trigger_extract_kernel", "lstm_multi_kernel", "upconv_relu_kernel")}
         device_of[label] = dev_ms
         print(f"{label}: one classify_arrays under torch.profiler: summed kernel time "
               f"{dev_ms:.2f} ms (of it "
@@ -3303,6 +3402,14 @@ def main() -> None:
               kernel_ms=res_kernel_ms, x_bound=res_ms / res_bound[0],
               x_bound_kernel_ms=res_kernel_ms / res_bound[0], windows_per_cta=res_plan[0],
               ctas=res_plan[1], shared_bytes=res_plan[2]),
+        # K8 replaces no TPU kernel; launches those of phase 4's classify; ms
+        # the summed profiler rows of the seven decoder layers at B 256 (one
+        # decoder), plain_ms the twin's by CUDA events, library_ms the cuDNN
+        # route's kernels; layers: each layer's row
+        {"name": "upconv_relu", "route": "cuda", "source": "volpick_tpu_torch/csrc/upconv.cu", "replaces": None,
+         "launches": upconv_of["eqtransformer"], "max_rel_err": up_err, "ms": sum(r["ms"] for r in up_rows),
+         "plain_ms": sum(r["plain_ms"] for r in up_rows), "bound_ms": sum(r["bound_ms"] for r in up_rows),
+         "bound_by": "per layer", "library_ms": sum(r["library_ms"] for r in up_rows), "layers": up_rows},
         # mha_qkv, the entry the model calls; *_head_major is the mha entry
         entry("mha", "mha.cu", "attention.py:55", "tpupicknet/pallas", mha_err, mha_ms,
               mha_plain_ms, mha_bound, mha_lib_ms, ms_head_major=mha_hm_ms,
@@ -3333,7 +3440,8 @@ def main() -> None:
         entry("mha_bf16", "mha.cu", "attention.py:55", "tpupicknet/pallas bfloat16", mha16_err, mha16_ms,
               mha16_plain_ms, mha16_bound, mha16_lib_ms, ms_head_major=mha16_hm_ms, ms_f32_row=mha32_row_ms,
               ms_simt=simt_ms, ms_simt_head_major=simt_hm_ms, beyond_one_ulp=list(mha16_strict)),
-    ], "launches_by_path": by_path, "optin_classify_launches": optin_launches,
+    ], "launches_by_path": by_path, "upconv_launches_by_path": upconv_of,
+        "optin_classify_launches": optin_launches,
         "streaming": {"packets": n_packets, "passes": n_pass, "forwards": n_fwd, "picks": len(got_picks),
                       "packets_per_s": stream_rate, "pass_ms_median": stream_pass_ms},
         "route_max_abs_curve_diff": route_errs,

@@ -6,7 +6,11 @@ a fixture, not at import). Run on a GPU machine with
 trigger extraction (both forms of its launch) and trigger scan exact; LSTM (both forms), MHA (both
 entries) and additive attention (both entries) 1e-5 (the tests/test_pallas.py pins); conditioning 2e-5; the res-CNN stack
 3e-4; picker curves GPU vs CPU 1e-4 (float32 convolutions reduce in another
-order on the card); a train step on the card against the CPU port in
+order on the card); the decoder layer's kernel within 1e-5 of the layer's
+largest output (it sums the taps that land on one input sample in the
+weights, so it adds the same products in another order), a full-width
+forward through it within 1e-4 of the same forward through its twin with
+equal picks; a train step on the card against the CPU port in
 float64: loss 1e-10 relative, gradients 1e-6 of each tensor's largest
 entry, parameters and EMA after the step 1e-9 (the same pins hold a step of a
 world of one NCCL rank to the plain step). The bfloat16 bodies against
@@ -38,6 +42,7 @@ from volpick_tpu_torch.ops.cuda import conditioning as cuda_cond
 from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
 from volpick_tpu_torch.ops.cuda import rescnn as cuda_rescnn
 from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
+from volpick_tpu_torch.ops.cuda import upconv as cuda_upconv
 from volpick_tpu_torch.ops.labels import detection_labels, probabilistic_labels
 from volpick_tpu_torch.ops.triggers import extract_triggers_batched
 from volpick_tpu_torch.picker import WaveformPicker
@@ -750,6 +755,185 @@ def test_optin_picker_gpu_matches_cpu(dev, monkeypatch):
         for g, r in zip(res[lab], full[lab]):
             np.testing.assert_array_equal(g, r)
     assert sum(int(v[2].sum()) for v in res.values()) > 0
+
+
+# ---- the decoder layer (K8)
+UPCONV_TOL = 1e-5
+# (I, O, K, T in, crop) of the full-width decoder's layers
+DECODER = [(16, 64, 3, 47, 0), (64, 64, 5, 94, 0), (64, 32, 5, 188, 1), (32, 32, 7, 375, 0),
+           (32, 16, 7, 750, 0), (16, 16, 9, 1500, 0), (16, 8, 11, 3000, 0)]
+
+
+def _upconv_case(dev, seed, b, i, o, t, k):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, i, t, device=dev, generator=g)
+    w = torch.randn(o, i, k, device=dev, generator=g) / (i * k) ** 0.5
+    return x, w, torch.randn(o, device=dev, generator=g) * 0.1
+
+
+def _assert_upconv_equals_twin(x, w, b, crop):
+    before = cuda_upconv.launches
+    got = cuda_upconv.upconv_relu(x, w, b, crop)
+    assert cuda_upconv.launches == before + 1
+    want = cuda_upconv.upconv_relu_reference(x, w, b, crop)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_contiguous()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= UPCONV_TOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("b", [256, 208, 16])
+@pytest.mark.parametrize("layer", range(len(DECODER)))
+def test_upconv_matches_twin_at_the_decoder_layers(dev, layer, b):
+    i, o, k, t, crop = DECODER[layer]
+    with torch.inference_mode():
+        _assert_upconv_equals_twin(*_upconv_case(dev, layer, b, i, o, t, k), crop)
+
+
+@pytest.mark.parametrize("b,i,o,t,k,crop", [
+    (2, 3, 5, 1, 1, 1), (2, 3, 5, 1, 5, 1), (3, 4, 12, 2, 13, 1), (1, 7, 9, 13, 3, 0), (2, 1, 1, 5, 7, 0),
+    (3, 5, 17, 33, 9, 1), (7, 32, 40, 101, 7, 1), (1, 100, 64, 50, 13, 0), (2, 16, 8, 6001, 11, 1),
+    (300, 16, 8, 1000, 11, 0)])
+def test_upconv_other_shapes(dev, b, i, o, t, k, crop):
+    """Lengths that cut a tile or a 16-byte row, channels that fill no whole
+    group, one-sample rows, K from 1 to 13, channel blocks, more items than CTAs."""
+    with torch.inference_mode():
+        _assert_upconv_equals_twin(*_upconv_case(dev, b * t + k, b, i, o, t, k), crop)
+
+
+def test_upconv_refusals(dev):
+    x, w, b = _upconv_case(dev, 0, 2, 4, 6, 10, 5)
+    before = cuda_upconv.launches
+    with pytest.raises(TypeError, match="float32"):
+        cuda_upconv.upconv_relu(x.bfloat16(), w.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_upconv.upconv_relu(x.transpose(1, 2).contiguous().transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="odd kernels"):
+        cuda_upconv.upconv_relu(x, w[..., :4].contiguous(), b)
+    with pytest.raises(ValueError, match="limit"):
+        cuda_upconv.upconv_relu(x, torch.zeros(6, 4, 15, device=dev), b)
+    with pytest.raises(ValueError, match="require"):
+        cuda_upconv.upconv_relu(x, w.clone().requires_grad_(True), b)
+    assert cuda_upconv.launches == before
+    with torch.no_grad():  # weights that require grad, outside autograd: the kernel
+        cuda_upconv.upconv_relu(x, w.clone().requires_grad_(True), b)
+    assert cuda_upconv.launches == before + 1
+
+
+def test_upconv_plan_matches_the_library(dev):
+    fn = _build.function("upconv_shared_words", [ctypes.c_int] * 4)
+    fn.restype = ctypes.c_longlong
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, o, k, t, _ in DECODER:
+        for b in (256, 16):
+            nt, _, cblocks, threads, smem = cuda_upconv.upconv_plan(b, i, o, t, k, n_sm)
+            gc = threads // nt
+            assert 4 * fn(k, i, gc, nt) == smem
+
+
+def _clear_threshold(a, b):
+    """A threshold t near the top of curves ``a`` such that no sample of
+    ``a`` and ``b`` at one position lies on two sides of t or of t / 2 (the
+    trigger's second threshold): the triggers of the two curves are then the
+    same. Of such candidates, the one farthest from every sample of ``a``."""
+    a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+    vals = np.sort(a)
+
+    def gap(c):
+        return np.abs(vals[np.clip(np.searchsorted(vals, c) + np.array([-1, 0]), 0, vals.size - 1)] - c).min()
+
+    best = (None, -1.0)
+    for c in np.quantile(vals, np.linspace(0.98, 0.999, 200)):
+        c = float(np.float32(c))
+        half = float(np.float32(c) / np.float32(2.0))
+        if ((a - c) * (b - c) <= 0).any() or ((a - half) * (b - half) <= 0).any():
+            continue
+        g = min(gap(c), gap(half))
+        if g > best[1]:
+            best = (c, g)
+    return best
+
+
+@pytest.mark.parametrize("arch,n_dec", [("eqtransformer", 3), ("voleqtransformer", 4)])
+def test_eqt_forward_through_upconv_matches_its_twin(dev, arch, n_dec, monkeypatch):
+    """The default route's eval forward at full width launches the kernel 7
+    times a decoder a forward (21 for EQTransformer, 28 for VolEQTransformer)
+    and the ``eqt.branches`` span counts them; its curves lie within 1e-4 of
+    the same forward with the twin, and the picks are the twin's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volpick_tpu_torch.models import eqtransformer as port_eqt
+    from volpick_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(17)
+    data = (rng.normal(size=(4, 3, 30000)) * 0.1).astype(np.float32)
+    data[:, :, 12000:12400] += 2.0 * np.hanning(400).astype(np.float32)
+    model = load_model(arch, seed=1, device=dev)
+    picker = WaveformPicker(model, device=dev)
+    kw = dict(overlap=5500, blinding=(500, 500), batch_size=64)
+    forwards = [0]
+    hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    before = cuda_upconv.launches
+    curves = picker.annotate_array(data, **kw)
+    assert forwards[0] > 0 and cuda_upconv.launches == before + 7 * n_dec * forwards[0]
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]):
+        model(torch.as_tensor(data[:, :, :6000], device=dev))
+    span, = [s for s in profiling.spans() if s.name == "eqt.branches"][-1:]
+    assert span.counts == {"upconv": 7 * n_dec}
+    # seeded weights give nearly flat curves, too dense for a threshold that
+    # clears every sample: stretch each head's logits about their median so
+    # that the curves have isolated peaks (chip_smoke.py's rule)
+    heads = [getattr(model, ck) for _, ck in model.detection_branches] + list(model.pick_convs)
+    with torch.no_grad():
+        for ci, head in enumerate(heads):
+            pr = np.clip(curves[:, ci, 500:-500].astype(np.float64), 1e-7, 1 - 1e-7)
+            lo, mid, hi = np.percentile(np.log(pr / (1 - pr)), [16, 50, 84])
+            a = 3.0 / float(hi - lo)
+            head.bias.copy_((head.bias - float(mid)) * a - 5.0)
+            head.weight.mul_(a)
+    curves = picker.annotate_array(data, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(port_eqt, "upconv_relu", cuda_upconv.upconv_relu_reference)
+        before = cuda_upconv.launches
+        twin = picker.annotate_array(data, **kw)
+        assert cuda_upconv.launches == before
+    hook.remove()
+    np.testing.assert_allclose(curves, twin, atol=1e-4)
+    # thresholds on which the two curves trigger alike
+    thr = {}
+    for ci, lab in enumerate(picker._prob_channels()):
+        thr[lab], _ = _clear_threshold(curves[:, ci], twin[:, ci])
+        assert thr[lab] is not None, lab
+    res = picker.classify_arrays(data, thr, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(port_eqt, "upconv_relu", cuda_upconv.upconv_relu_reference)
+        twin_res = picker.classify_arrays(data, thr, **kw)
+    assert sum(int(v[2].sum()) for v in res.values()) > 0
+    for lab in res:  # the same picks; their peak values within the curves' 1e-4
+        (idx, val, *rest), (t_idx, t_val, *t_rest) = res[lab], twin_res[lab]
+        np.testing.assert_array_equal(idx, t_idx)
+        np.testing.assert_allclose(val, t_val, atol=1e-4)
+        for g, r in zip(rest, t_rest):
+            np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("case", ["train", "bfloat16", "polyup", "grouped", "blockdiag"])
+def test_eqt_other_routes_launch_no_upconv(dev, case):
+    model = load_model("eqtransformer", seed=1, device=dev)
+    x = torch.randn(4, 3, 6000, device=dev)
+    before = cuda_upconv.launches
+    if case == "train":
+        model.train()
+        with torch.no_grad():
+            model(x)
+    elif case == "bfloat16":
+        with torch.inference_mode():
+            model.eval().to(torch.bfloat16)(x.bfloat16())
+    else:
+        with torch.inference_mode():
+            model.eval()(x, fused=f"plstm+bandattn+{case}")
+    torch.cuda.synchronize()
+    assert cuda_upconv.launches == before
 
 
 # ---- training

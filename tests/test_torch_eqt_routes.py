@@ -11,6 +11,8 @@ decoder (the JAX package's own pin of the polyphase re-association) and for
 the grouped convolutions alone.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from volpick_tpu_torch.models.convert import (
     voleqtransformer_state_dict_from_jax,
 )
 from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
+from volpick_tpu_torch.ops.cuda import upconv as cuda_upconv
 from volpick_tpu_torch.picker import WaveformPicker
 
 ATOL = 2e-4
@@ -189,6 +192,60 @@ def test_which_recurrence_a_route_calls(pair, fused, merged_calls, plain_calls, 
     _port(model, x, fused=fused)
     assert calls == {"kernel": merged_calls, "plain": plain_calls}
     assert cuda_lstm.launches == before  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("fused,takes", [
+    ("plstm+bandattn", True), (False, True), ("lstm", True), ("plstm+bandattn+pattn", True),
+    ("polyup", False), ("plstm+bandattn+polyup", False), ("grouped", False), ("blockdiag", False),
+    ("plstm+bandattn+pattn+grouped", False), ("lstm+grouped+polyup", False),
+], ids=str)
+def test_which_routes_take_the_decoder_kernel(pair, fused, takes, monkeypatch):
+    """The float32 eval forward of a per-branch decoder route without
+    "polyup" sends every decoder layer through ``upconv_relu`` (on the card,
+    its kernel); the other routes keep their own decoder code."""
+    _, _, model, x = pair
+    calls = []
+    real = port_eqt.upconv_relu
+    monkeypatch.setattr(port_eqt, "upconv_relu", lambda *a, **k: (calls.append(k["crop_last"]), real(*a, **k))[1])
+    before = cuda_upconv.launches
+    _port(model, x, fused=fused)
+    n_dec = len(model.detection_branches) + len(model.pick_decoders)
+    assert len(calls) == (7 * n_dec if takes else 0)
+    if takes:  # each decoder crops where the encoder padded
+        assert calls == [int(i in model._crops) for i in range(7)] * n_dec and sum(calls) == n_dec
+    assert cuda_upconv.launches == before  # CPU tensors launch nothing
+
+
+def test_train_mode_and_bf16_keep_the_plain_decoder(pair, monkeypatch):
+    _, _, model, x = pair
+    calls = []
+    monkeypatch.setattr(port_eqt, "upconv_relu", lambda *a, **k: calls.append(1))
+    xt = torch.as_tensor(x)
+    model.train()
+    try:
+        with torch.no_grad():
+            model(xt)
+    finally:
+        model.eval()
+    half = copy.deepcopy(model).to(torch.bfloat16)
+    with torch.inference_mode():
+        out = half(xt.to(torch.bfloat16))
+    assert calls == [] and all(o.dtype == torch.bfloat16 for o in out)
+
+
+def test_branches_span_counts_the_kernel_layers(pair):
+    """``eqt.branches`` carries ``upconv``: the decoder layers run through the
+    kernel in that forward, 0 on the CPU (the twin runs there)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volpick_tpu_torch.utils import profiling
+
+    _, _, model, x = pair
+    with profile(activities=[ProfilerActivity.CPU]):
+        _port(model, x)
+        _port(model, x, fused="polyup")
+    got = [s for s in profiling.spans() if s.name == "eqt.branches"][-2:]
+    assert [s.counts for s in got] == [{"upconv": 0}, {"upconv": 0}]
 
 
 @pytest.mark.parametrize("groups,k,crop", [(1, 3, False), (3, 7, False), (3, 7, True), (4, 11, True),

@@ -282,7 +282,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "for want in ('core.stream', 'core.picks', 'picker.streaming', 'picker.oracle',\n"
         "             'picker.stage_times', 'ops.cuda.addattn', 'ops.cuda.conditioning',\n"
-        "             'ops.cuda.rescnn', 'ops.cuda.triggers', 'ops.cuda.lstm', 'ops.cuda.attention',\n"
+        "             'ops.cuda.rescnn', 'ops.cuda.triggers', 'ops.cuda.lstm', 'ops.cuda.attention', 'ops.cuda.upconv',\n"
         "             'eval.task0', 'eval.task123', '__main__', 'io.miniseed', 'io.win32',\n"
         "             'core.sacio', 'ops.features', 'utils.qc', 'classical', 'data.assemble',\n"
         "             'utils.profiling', 'utils.plotting', 'acquisition', 'acquisition.events',\n"

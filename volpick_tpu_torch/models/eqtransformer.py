@@ -12,7 +12,11 @@ program (``parse_fused``); the default, ``"plstm+bandattn"``, runs every LSTM
 recurrence through ``ops/cuda/lstm.py::lstm_branches`` (both pick LSTMs in one
 merged recurrence) and the pick attention over its band only. With ``"pattn"``
 the transformer blocks' attention goes through
-``ops/cuda/addattn.py::seq_self_attention``.
+``ops/cuda/addattn.py::seq_self_attention``. The eval forward in float32 on
+a per-branch decoder route without ``"polyup"`` (the default among them)
+runs each decoder layer through ``ops/cuda/upconv.py::upconv_relu``, one
+kernel launch a layer on the card, and counts those layers as ``upconv`` on
+the ``eqt.branches`` span.
 
 In train mode (``model.train()``) the forward takes the per-branch program,
 as the JAX ``apply(train=True)`` does: plain recurrences and the dense masked
@@ -56,6 +60,7 @@ from volpick_tpu_torch.models.layers import (
 from volpick_tpu_torch.models.params import Conv, bn, norm, uniform
 from volpick_tpu_torch.ops.cuda.addattn import seq_self_attention as seq_self_attention_kernel
 from volpick_tpu_torch.ops.cuda.lstm import lstm_branches, lstm_branches_reference
+from volpick_tpu_torch.ops.cuda.upconv import upconv_relu
 from volpick_tpu_torch.utils import profiling
 
 _BN_EPS = 1e-3
@@ -360,9 +365,13 @@ class EQTransformer(nn.Module):
         f, ks = list(self.filters), list(self.kernel_sizes)
         return ConvStack([16] + f[::-1][:-1], f[::-1], ks[::-1], gen)
 
-    def _upconv(self, z, w, b, i: int, poly_up: bool, groups: int = 1) -> torch.Tensor:
+    def _upconv(self, z, w, b, i: int, poly_up: bool, groups: int = 1, kernel: bool = False) -> torch.Tensor:
         """Decoder layer i: 2x nearest upsampling (cropped by one where the
-        encoder padded), 'same' conv, relu."""
+        encoder padded), 'same' conv, relu. ``kernel``: through
+        ``ops/cuda/upconv.py::upconv_relu`` (its kernel on the card, on the CPU
+        its twin, which is the plain code below)."""
+        if kernel:
+            return upconv_relu(z.contiguous(), w, b, crop_last=int(i in self._crops))
         if poly_up:
             return F.relu(upsample2_conv1d_same(z, w, b, crop_last=i in self._crops, groups=groups))
         z = upsample_nearest(z, 2)
@@ -370,10 +379,11 @@ class EQTransformer(nn.Module):
             z = z[..., :-1]
         return F.relu(conv1d_same(z, w, b, groups=groups))
 
-    def _decode(self, z: torch.Tensor, dec: ConvStack, head: Conv, poly_up: bool) -> torch.Tensor:
+    def _decode(self, z: torch.Tensor, dec: ConvStack, head: Conv, poly_up: bool,
+                kernel: bool = False) -> torch.Tensor:
         """One branch's decoder and head: (B, 16, T) → logits (B, in_samples)."""
         for i, conv in enumerate(dec.convs):
-            z = self._upconv(z, conv.weight, conv.bias, i, poly_up)
+            z = self._upconv(z, conv.weight, conv.bias, i, poly_up, kernel=kernel)
         return head.same(z)[:, 0]
 
     def _decode_merged(self, branch_ins, decoders, heads, mode: str, poly_up: bool):
@@ -462,7 +472,7 @@ class EQTransformer(nn.Module):
             h = self.transformer_d(h, p_attn, rate, generator)
         if stop_after == "transformer":
             return h
-        with stage("eqt.branches"):
+        with stage("eqt.branches") as branches:
             def pick_attention(px, att):
                 if band_attn:
                     return seq_self_attention_banded(px, att.params(), 3, eps=_ATTN_EPS)
@@ -494,10 +504,15 @@ class EQTransformer(nn.Module):
 
             decoders = [getattr(self, dk) for dk, _ in self.detection_branches] + list(self.pick_decoders)
             heads = [getattr(self, ck) for _, ck in self.detection_branches] + list(self.pick_convs)
+            # the per-branch decoders of the float32 eval forward without "polyup"
+            # take upconv_relu, one launch a layer on the card
+            kernel = decode_mode == "branch" and not poly_up and not self.training and h.dtype == torch.float32
             if decode_mode == "branch":
-                preds = [self._decode(z, d, c, poly_up) for z, d, c in zip(branch_ins, decoders, heads)]
+                preds = [self._decode(z, d, c, poly_up, kernel) for z, d, c in zip(branch_ins, decoders, heads)]
             else:
                 preds = self._decode_merged(branch_ins, decoders, heads, decode_mode, poly_up)
+            if not self.training:
+                branches.count(upconv=sum(len(d.convs) for d in decoders) if kernel and h.is_cuda else 0)
             return tuple(preds if logits else [torch.sigmoid(p) for p in preds])
 
 
