@@ -57,6 +57,20 @@ def k2_work(branches: int, batch: int, steps: int, hidden: int) -> Tuple[float, 
     return float(n_bytes), flops, 5.0 * cells
 
 
+def k8_work(batch: int, c_in: int, c_out: int, k: int, length_out: int) -> Tuple[float, float, float]:
+    """(bytes, float32 operations, special-function operations) of one K8
+    ``upconv_relu`` launch, one decoder layer: x (batch, c_in, T) upsampled
+    twice to ``length_out`` = 2T or 2T - 1 samples, a 'same' convolution of
+    odd width k, ReLU. The kernel reads x at its own resolution, the weights
+    (c_out, c_in, k) and the bias once, and writes the output once; it folds
+    the taps that land on one input sample, so an output takes p + 1 = (k + 1)
+    / 2 multiply-adds an input channel, not k."""
+    t_in = (length_out + 1) // 2
+    n_bytes = 4 * (batch * c_in * t_in + c_out * c_in * k + c_out + batch * c_out * length_out)
+    flops = 2.0 * batch * c_out * length_out * c_in * ((k - 1) // 2 + 1)
+    return float(n_bytes), flops, 0.0
+
+
 def flops_per_window(model, in_channels: int, in_samples: int) -> int:
     """Matrix-product and convolution operations (2 a multiply-add) of one
     window through `model`: ``torch.utils.flop_counter`` on the CPU, plus

@@ -6,9 +6,10 @@ first. Set-up makes the weights and the request pool from the seed on the
 device, builds the program's picker (``WaveformPicker`` on the port's
 ``load_model``) with those weights, and warms up the one request shape of
 the cell's mix. The window then drives ``classify_arrays`` in the mix's loop
-for ``seconds``. After it, the trace (``--trace 1``) profiles a slice of
-requests; the program is freed and the reference judges every request that
-completed.
+for ``seconds``. After it, the trace profiles a slice of requests (with
+``--trace 1``, and on the card in every run of a cell with an end-to-end
+metric from the device's trace); the program is freed and the reference
+judges every request that completed.
 """
 
 from __future__ import annotations
@@ -28,12 +29,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmark import manifest, readers, reference, trace, traffic, weights
+from benchmark import host, manifest, readers, reference, trace, traffic, weights
 from benchmark.plan import Plan, plan
 
 PROGRAM_KERNELS = {  # the port's kernels on these paths, by their device rows
     "k1": "trigger_extract_kernel",
     "k2": "lstm_multi_kernel",
+    "k8": "upconv_relu_kernel",
 }
 
 
@@ -255,6 +257,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device: str,
         f"{pl.windows} windows a request in {len(pl.forwards)} forwards of {sorted(set(pl.forwards))}")
 
     # ---- the window
+    before = host.sample(dev.type == "cuda")
     if mix["loop"] == "closed":
         reqs = closed_loop(call, pool, traffic.closed_order(mix, seed, mix["pool"]), seconds)
         window_s = reqs[-1].end
@@ -266,17 +269,29 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device: str,
         log(f"open loop: {len(reqs)} requests due at {mix['rate_per_s']}/s, the generator at most "
             f"{generator_late_ms(reqs):.3f} ms late; the last done "
             f"{max((r.end for r in reqs if r.done), default=0.0) - seconds:.3f} s after the window")
+    log(host.describe(before, host.sample(dev.type == "cuda")))
     served = sorted(1e3 * (r.end - r.start) for r in reqs if r.done)
     if served:
         log(f"window {window_s:.3f} s: {len(served)} requests served, service ms p10 "
             f"{served[len(served) // 10]:.3f} p50 {served[len(served) // 2]:.3f} "
             f"p90 {served[9 * len(served) // 10]:.3f}")
+        fifths = [sorted(1e3 * (r.end - r.start) for r in reqs
+                         if r.done and k * window_s <= 5 * r.start < (k + 1) * window_s) for k in range(5)]
+        log("service ms p50 by fifth of the window: "
+            + " ".join(f"{f[len(f) // 2]:.3f}" if f else "-" for f in fifths))
     memory_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     station_hours = mix["stations"] * mix["samples"] / mix["sampling_rate"] / 3600.0
     ctx = Context(cfg, mix, pl, setup_s, reqs, window_s, drain_end, station_hours)
+    if served:  # the window's host-clock readings, whichever of them the cell reports
+        log(f"window readings: {readers.station_hours_per_s(ctx, {}):.6f} station-h/s; from due time "
+            f"to picks ms p50 {readers.latency_percentile_ms(ctx, {'q': 50}):.3f} "
+            f"p95 {readers.latency_percentile_ms(ctx, {'q': 95}):.3f}")
 
-    # ---- the traced slice
-    if traced:
+    # ---- the traced slice: the per-layer metrics read it, and so do the
+    # end-to-end metrics taken from the device's trace (on the card)
+    from_trace = any(m["source"] == "device_trace" for m in manifest.metrics_of(man, workload, "end_to_end"))
+    if traced or (from_trace and dev.type == "cuda"):
+        t_slice = time.perf_counter()
         if mix["loop"] == "closed":
             order = traffic.closed_order(mix, seed, mix["pool"])
             n = mix["trace_requests"]
@@ -299,6 +314,8 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device: str,
             if got < want:
                 raise RuntimeError(f"the traced slice holds {got} {kernel} launches of the {want} "
                                    f"its {n} requests make: the trace lost device records")
+        log(f"traced slice: {n} requests, busy {ctx.slice.busy_s():.6f} s of {ctx.slice.window_s:.6f} s, "
+            f"{len(ctx.slice.kernels)} device records; profiled and read in {time.perf_counter() - t_slice:.3f} s")
 
     results = {}
     for m in manifest.metrics_of(man, workload, "per_layer" if traced else "end_to_end"):

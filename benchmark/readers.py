@@ -63,43 +63,51 @@ def kernel_ms_per_kwin(ctx, p) -> Optional[float]:
     rows = ctx.slice.matching(re.compile(p["match"]))
     if not rows:
         return None
-    ms = sum(b - a for _, a, b in rows) / 1e6
+    ms = sum(b - a for _, a, b, _ in rows) / 1e6
     return ms / (ctx.slice_requests * ctx.plan.windows / 1000.0)
 
 
-def _kernel_work(ctx, kernel: str):
-    """(bytes, operations, special-function operations) of the slice's calls
-    of `kernel`, from the requests' shapes; None where the configuration does
-    not launch it."""
+def _kernel_calls(ctx, kernel: str):
+    """[(calls, (bytes, operations, special-function operations) a call)] of
+    the slice's launches of `kernel`, one entry a call shape, from the
+    requests' shapes; None where the configuration does not launch it."""
     spec = ctx.cfg.get("kernels", {}).get(kernel)
     if spec is None:
         return None
+    n = ctx.slice_requests
     if kernel == "k1":
         rows = len(ctx.cfg["labels"]) * ctx.plan.stations
-        one = bounds.k1_work(rows, ctx.plan.padded_total, ctx.plan.max_picks)
-        n = ctx.slice_requests * spec["calls_per_request"]
-        return tuple(n * v for v in one)
+        return [(n * spec["calls_per_request"], bounds.k1_work(rows, ctx.plan.padded_total, ctx.plan.max_picks))]
     if kernel == "k2":
-        tot = [0.0, 0.0, 0.0]
-        for batch in ctx.plan.forwards:
-            w = bounds.k2_work(spec["branches"], batch, spec["steps"], spec["hidden"])
-            for i in range(3):
-                tot[i] += w[i] * spec["calls_per_forward"] * ctx.slice_requests
-        return tuple(tot)
+        return [(n * spec["calls_per_forward"], bounds.k2_work(spec["branches"], batch, spec["steps"], spec["hidden"]))
+                for batch in ctx.plan.forwards]
+    if kernel == "k8":  # each branch's decoder runs the configuration's layers once a forward
+        per_layer = n * spec["calls_per_forward"] // len(spec["layers"])
+        return [(per_layer, bounds.k8_work(batch, *layer)) for batch in ctx.plan.forwards for layer in spec["layers"]]
     raise ValueError(f"no work count for kernel {kernel!r}")
 
 
 def kernel_roofline(ctx, p) -> Optional[float]:
-    """The bound of the slice's `kernel` work over the summed device time of
-    its rows (names matching ``match``), in percent."""
+    """The summed bounds of the slice's `kernel` launches, each launch's the
+    larger of its bytes and its operations over their peaks, over the summed
+    device time of their rows (names matching ``match``), in percent."""
     if ctx.slice is None:
         return None
-    work = _kernel_work(ctx, p["kernel"])
+    calls = _kernel_calls(ctx, p["kernel"])
     rows = ctx.slice.matching(re.compile(p["match"]))
-    if work is None or not rows:
+    if calls is None or not rows:
         return None
-    t = sum(b - a for _, a, b in rows) / 1e9
-    return 100.0 * bounds.bound_s(*work)[0] / t
+    t = sum(b - a for _, a, b, _ in rows) / 1e9
+    return 100.0 * sum(n * bounds.bound_s(*work)[0] for n, work in calls) / t
+
+
+def device_ms_per_station_h(ctx, p) -> Optional[float]:
+    """The device's busy ms in the profiled slice (the union of its kernels,
+    copies and fills) per station-hour of the slice's requests: the card's
+    time that a station-hour costs, whatever the host's pace."""
+    if ctx.slice is None:
+        return None
+    return 1e3 * ctx.slice.busy_s() / (ctx.slice_requests * ctx.station_hours)
 
 
 def idle_share(ctx, p) -> Optional[float]:

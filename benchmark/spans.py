@@ -10,12 +10,12 @@ span has ``name``, ``request``, ``id``, ``parent``, ``start_ns``,
 ``end_ns`` on the trace's clock and ``counts``.
 
 A span's device work is what the host calls inside it put on the device:
-the slice keeps no correlation ids, but the program runs one stream, which
-runs its work in the order the host issued it, so the k-th call of a kind
-(a kernel launch, a copy, a fill) issued the slice's k-th device activity
-of that kind (``issued``). That is the span's kernels' own time, without
-the device's idle inside the span (its ``device_ms`` from CUDA events has
-that idle, and under the profiler, which slows the host, mostly idle).
+each device activity goes to the host call with its correlation id
+(``issued``), whatever the order of either, so that one ``cudaGraphLaunch``
+owns every kernel its replay runs. That is the span's kernels' own time,
+without the device's idle inside the span (its ``device_ms`` from CUDA
+events has that idle, and under the profiler, which slows the host, mostly
+idle).
 
 ``fetch`` is the one function that imports the program; where the program
 records no spans it returns None, and so does every metric. The rest takes
@@ -30,19 +30,20 @@ import statistics
 from typing import List, Optional, Sequence, Tuple
 
 # the CUDA runtime and driver calls that put work on the device's queue, as
-# the profiler names the host's events
+# the profiler names the host's events; a graph's replay is one call
 LAUNCH = re.compile(r"^(cudaLaunchKernel(ExC)?|cudaLaunchCooperativeKernel(MultiDevice)?|"
-                    r"cuLaunchKernel(Ex)?|cudaMemcpyAsync|cudaMemsetAsync)(_v\d+)?$")
+                    r"cuLaunchKernel(Ex)?|cudaMemcpyAsync|cudaMemsetAsync|cudaGraphLaunch)(_v\d+)?$")
 
 
-# a host call that puts one activity on the device's queue, and a test of
-# that activity's name, by kind
+# a host call that puts work on the device's queue, and a test of the name
+# of each activity it may put there, by kind
 KINDS = (
     (re.compile(r"^(cudaLaunchKernel(ExC)?|cudaLaunchCooperativeKernel(MultiDevice)?|"
                 r"cuLaunchKernel(Ex)?)(_v\d+)?$"),
      lambda name: not name.startswith(("Memcpy", "Memset"))),
     (re.compile(r"^cudaMemcpy(Async)?(_v\d+)?$"), lambda name: name.startswith("Memcpy")),
     (re.compile(r"^cudaMemset(Async)?(_v\d+)?$"), lambda name: name.startswith("Memset")),
+    (re.compile(r"^cudaGraphLaunch(_v\d+)?$"), lambda name: True),  # kernels, copies and fills
 )
 
 
@@ -89,30 +90,37 @@ def _inside(intervals: Sequence[Tuple[int, int]]):
     return test
 
 
-def launches_per_step(spans: Sequence, host: Sequence[Tuple[str, int, int]]) -> Optional[float]:
-    """Launch calls of the host (``LAUNCH``) that start inside a ``step`` span,
-    over the number of steps."""
+def launches_per_step(spans: Sequence, host: Sequence[Tuple[str, int, int, int]]) -> Optional[float]:
+    """Launch calls of the host (``LAUNCH``; a graph's replay is one) that
+    start inside a ``step`` span, over the number of steps."""
     steps = sorted((s.start_ns, s.end_ns) for s in spans if s.name == "step")
     if not steps:
         return None
     inside = _inside(steps)
-    return sum(1 for name, t, _ in host if inside(t) and LAUNCH.match(name)) / len(steps)
+    return sum(1 for name, t, *_ in host if inside(t) and LAUNCH.match(name)) / len(steps)
 
 
-def issued(host: Sequence[Tuple[str, int, int]],
-           device: Sequence[Tuple[str, int, int]]) -> Optional[List[Tuple[int, int]]]:
-    """(start of the host call, ns of the device activity it issued) for every
-    call of ``KINDS``: the k-th call of a kind issued the k-th activity of
-    that kind on the device's one in-order stream. None where a kind's calls
-    and activities differ in number, so cannot be paired."""
-    out = []
-    for call, act in KINDS:
-        calls = sorted(t for name, t, _ in host if call.match(name))
-        acts = sorted((a, b) for name, a, b in device if act(name))
-        if len(calls) != len(acts):
+def issued(host: Sequence[Tuple[str, int, int, int]],
+           device: Sequence[Tuple[str, int, int, int]]) -> Optional[List[Tuple[int, int]]]:
+    """(start of the host call, ns of the activity) for every device activity:
+    an activity goes to the call of ``KINDS`` with its correlation id, so a
+    graph's launch owns all its replay's kernels. None where an activity has
+    no such call or is not of its call's kind, or where a call owns no
+    activity: the trace lost a record, and the spans' device time is unknown."""
+    calls = {}
+    for name, t, _, corr in host:
+        for call, act in KINDS:
+            if call.match(name):
+                calls[corr] = (t, act)
+                break
+    out, owners = [], set()
+    for name, a, b, corr in device:
+        t, act = calls.get(corr, (None, None))
+        if t is None or not act(name):
             return None
-        out += [(t, b - a) for t, (a, b) in zip(calls, acts)]
-    return out
+        out.append((t, b - a))
+        owners.add(corr)
+    return out if len(owners) == len(calls) else None
 
 
 def device_ms_per_kwin(spans: Sequence, pairs: Optional[Sequence[Tuple[int, int]]], name: str) -> Optional[float]:

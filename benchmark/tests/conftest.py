@@ -38,7 +38,7 @@ def tiny_mix(traffic: str) -> dict:
     mix.update(stations=stations, samples=samples, pool=pool)
     mix["classify"]["batch_size"] = batch
     if mix["loop"] == "open":
-        mix.update(rate_per_s=3.0, drain_s=30.0)
+        mix.update(rate_per_s=3.0, drain_s=120.0)  # a loaded CPU serves a request in seconds
     return mix
 
 

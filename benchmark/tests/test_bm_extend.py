@@ -38,10 +38,11 @@ def test_new_files_and_entries_only(tmp_path):
                            "file": "benchmark/configs/phasenet_copy.json", "reduced": [], "why": "a copy"})
     man["workloads"].append({"name": "phasenet_copy.throwaway", "config": "phasenet_copy",
                              "traffic": "throwaway", "chips": 1, "why": "a throwaway cell"})
-    man["end_to_end"][0]["workloads"].append("phasenet_copy.throwaway")
+    rate = next(m for m in man["end_to_end"] if m["name"] == "classify_station_h_per_s.phasenet")
+    rate["workloads"].append("phasenet_copy.throwaway")
     man["per_layer"].append({"name": "requests_done.throwaway", "unit": "requests", "better": "higher",
                              "source": "host_clock", "layer": "request loop",
-                             "moves": "classify_station_h_per_s", "workloads": ["phasenet_copy.throwaway"]})
+                             "moves": "classify_station_h_per_s.phasenet", "workloads": ["phasenet_copy.throwaway"]})
     after_manifest = json.dumps(man, indent=1)
 
     # every file that was there is unchanged but the manifest, which only gained entries
@@ -50,7 +51,7 @@ def test_new_files_and_entries_only(tmp_path):
 
     out = harness.run("phasenet_copy.throwaway", 2**31 + 3, 1.0, False, "cpu", time.perf_counter(), root)
     assert out["correct"], out["check"]
-    assert set(out["metrics"]) == {"classify_station_h_per_s", "setup_s"}
+    assert set(out["metrics"]) == {"classify_station_h_per_s.phasenet", "setup_s"}
     metric = manifest.metrics_of(manifest.load(root), "phasenet_copy.throwaway", "per_layer")
     assert [m["name"] for m in metric] == ["requests_done.throwaway"]
     fake = SimpleNamespace(requests=[harness.Request(0.0, 0, 0.0, 1.0), harness.Request(1.0, 0)])

@@ -8,10 +8,11 @@ without the pad and in none of 1000 with 10 or 50 ms. It raises where the
 session recorded no device activity.
 
 The reduction reads the profiler's raw events (kernels, copies and fills on
-the device; CUDA runtime calls on the host) on one clock: the
-device's busy time is the union of its activity intervals inside the
-slice, not a sum of rows, and each idle gap is named by the shortest host
-event that spans its middle, what the host was doing then.
+the device; CUDA runtime calls on the host) on one clock, each with its
+correlation id: the device's busy time is the union of its activity
+intervals inside the slice, not a sum of rows, and each idle gap is named
+by the shortest host event that spans its middle, what the host was doing
+then.
 """
 
 from __future__ import annotations
@@ -24,13 +25,18 @@ import torch
 
 PAD_S = 0.05
 
+# (name, start_ns, end_ns, correlation id): the profiler gives a device
+# activity the id of the host call that put it on the queue, and a CUDA
+# graph's replay gives each of its kernels the id of its ``cudaGraphLaunch``
+Event = Tuple[str, int, int, int]
+
 
 @dataclasses.dataclass
 class Slice:
     start_ns: int  # the slice's work, host clock of the trace
     end_ns: int
-    kernels: List[Tuple[str, int, int]]  # device activity: (name, start_ns, end_ns)
-    host: List[Tuple[str, int, int]]  # host events: (name, start_ns, end_ns)
+    kernels: List[Event]  # device activity
+    host: List[Event]  # host events: CUDA runtime and driver calls
     waits: List[Tuple[int, int]] = dataclasses.field(default_factory=list)  # the client idle, no request due
 
     @property
@@ -42,7 +48,7 @@ class Slice:
 
     def busy_intervals(self) -> List[Tuple[int, int]]:
         """The union of device activity inside the slice, sorted."""
-        iv = sorted((max(a, self.start_ns), min(b, self.end_ns)) for _, a, b in self.kernels)
+        iv = sorted((max(a, self.start_ns), min(b, self.end_ns)) for _, a, b, _ in self.kernels)
         out: List[List[int]] = []
         for a, b in iv:
             if b <= a:
@@ -74,14 +80,14 @@ class Slice:
         if any(a <= t <= b for a, b in self.waits):
             return "client idle, no request due"
         best = None
-        for name, a, b in self.host:
+        for name, a, b, _ in self.host:
             if a <= t <= b and (best is None or b - a < best[1]):
                 best = (name, b - a)
         return best[0] if best else "python (no CUDA call)"
 
     def breakdown(self, top: int = 10) -> Dict[str, list]:
         by_name: Dict[str, float] = {}
-        for name, a, b in self.kernels:
+        for name, a, b, _ in self.kernels:
             by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e9
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
         gaps = sorted(self.gaps(), key=lambda g: g[0] - g[1])[:top]
@@ -117,7 +123,7 @@ def profile_slice(fn: Callable[[], None]) -> Slice:
         time.sleep(PAD_S)
     kernels, host = [], []
     for e in prof.profiler.kineto_results.events():
-        item = (e.name(), _ns(e, True), _ns(e, False))
+        item = (e.name(), _ns(e, True), _ns(e, False), int(e.correlation_id()))
         (kernels if e.device_type() == DeviceType.CUDA else host).append(item)
     if not kernels:
         raise RuntimeError(
