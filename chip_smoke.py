@@ -51,7 +51,12 @@
    full-width EQTransformer at B = 256, 208 and 16 within 1e-5 of the
    layer's largest output, timed at B = 256 by its profiler row beside the
    twin's time by CUDA events and the summed device time of the twin's
-   kernels (the cuDNN route, a yardstick only). Beside each kernel it
+   kernels (the cuDNN route, a yardstick only); K9 convpool_relu at each of
+   the seven encoder layers at the same batches within 1e-5 of the layer's
+   largest output, timed at each by its profiler row beside the cuDNN
+   route's kernels, bound by the benchmark's k9_work, and 7 launches a
+   float32 EQT-family forward wherever the launches are counted (0 in
+   bf16). Beside each kernel it
    prints the least time the card could take for the same work (bytes
    over 3.35 TB/s, float32 operations over 67
    TFLOP/s, transcendentals over the special-function units' 67 / 16 T/s; the
@@ -316,6 +321,10 @@ COND_TOL, ATT_TOL, RES_TOL = 2e-5, 1e-5, 3e-4
 # K8 against its twin: the folded taps sum the same products in another
 # order, so a layer's outputs differ by rounding of its largest terms
 UPCONV_TOL, UPCONV_BATCHES = 1e-5, (256, 208, 16)
+# K9 against its twin: the kernel sums the K x I products of a conv output in
+# another order than cuDNN's float32 conv (TF32 would be ~1e-3 off); at the
+# same batches (eqt.archive's step, eqt.live's, a short one)
+CONVPOOL_TOL = 1e-5
 # phase 7: a synthetic pool on the card, about TRAIN_STEPS steps of the
 # training config, the card-vs-CPU gradient on GRAD_WINDOWS windows
 TRAIN_CONFIG = "examples/configs/eqtransformer_vcseis.json"
@@ -585,6 +594,77 @@ def upconv_rows(dev, rng, batches=UPCONV_BATCHES):
     return rows, worst
 
 
+def k9_work():
+    """``k9_work(batch, c_in, c_out, k, length)`` → (bytes, float32
+    operations, special-function operations) of one K9 launch, and
+    ``encoder_layers(model_args)``, from the benchmark's reader of K9's
+    roofline share (``benchmark/metrics/k9_roofline.archive.py``), so that
+    this bound is the one the benchmark divides by."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "metrics",
+                        "k9_roofline.archive.py")
+    spec = importlib.util.spec_from_file_location("k9_roofline_archive", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.k9_work, mod.encoder_layers
+
+
+def convpool_rows(dev, rng, batches=UPCONV_BATCHES):
+    """K9 convpool_relu at every encoder layer of the full-width
+    EQTransformer: the kernel against its twin at each batch of ``batches``
+    (within CONVPOOL_TOL of the layer's largest output), and at each batch
+    its profiler row (20 calls), its time by CUDA events, the summed device
+    time of the twin's kernels (the cuDNN route: the pad copy, cuDNN's conv,
+    the ReLU, the odd length's -inf pad copy, the pooling; a yardstick only)
+    and the bound of the layer's work (``k9_work``). → (rows, largest
+    relative error)."""
+    from volpick_tpu_torch.models import load_model
+    from volpick_tpu_torch.ops.cuda import convpool as cuda_convpool
+    from volpick_tpu_torch.picker.stage_times import cuda_ms, profiled, self_device_us
+
+    work, encoder_layers = k9_work()
+    model = load_model("eqtransformer", seed=0, device="cpu")
+    layers = encoder_layers({"filters": model.filters, "kernel_sizes": model.kernel_sizes,
+                             "in_samples": model.in_samples, "in_channels": model.in_channels})
+    if [tuple(c.weight.shape[1::-1]) + (c.weight.shape[-1],) for c in model.encoder.convs] != [
+            lay[:3] for lay in layers]:
+        fail(f"K9: the benchmark's encoder layers {layers} are not the model's")
+    rows, worst = [], 0.0
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.inference_mode():
+        for li, (c, o, k, length) in enumerate(layers):
+            w = torch.as_tensor((rng.normal(size=(o, c, k)) / np.sqrt(c * k)).astype(np.float32), device=dev)
+            b = torch.as_tensor(rng.normal(size=o).astype(np.float32) * 0.1, device=dev)
+            for nb in batches:
+                x = torch.as_tensor(rng.normal(size=(nb, c, length)).astype(np.float32), device=dev)
+                before = cuda_convpool.launches
+                got = cuda_convpool.convpool_relu(x, w, b)
+                want = cuda_convpool.convpool_relu_reference(x, w, b)
+                torch.cuda.synchronize()
+                if cuda_convpool.launches != before + 1 or got.shape != want.shape:
+                    fail(f"convpool_relu L{li} B={nb}: {cuda_convpool.launches - before} launches, shape "
+                         f"{tuple(got.shape)}, want 1 and {tuple(want.shape)}")
+                err = float((got - want).abs().max() / want.abs().max())
+                worst = max(worst, err)
+                if not err <= CONVPOOL_TOL:
+                    fail(f"convpool_relu L{li} B={nb} (I {c}, O {o}, K {k}, L {length}): "
+                         f"max |d| {err:.3e} of the largest output > {CONVPOOL_TOL}")
+                _, twin_dev_ms, _ = profiled(lambda: [cuda_convpool.convpool_relu_reference(x, w, b)
+                                                      for _ in range(20)])
+                _, _, events = profiled(lambda: [cuda_convpool.convpool_relu(x, w, b) for _ in range(20)])
+                row_ms = sum(self_device_us(e) for e in events if "convpool_relu_kernel" in e.key) / 2e4
+                n_bytes, flops, _ = work(nb, c, o, k, length)
+                bnd = bound(n_bytes, flops=flops)
+                plan = cuda_convpool.convpool_plan(nb, c, o, length, k, n_sm)
+                rows.append({"layer": li, "b": nb, "i": c, "o": o, "k": k, "l": length,
+                             "ms": row_ms, "event_ms": cuda_ms(lambda: cuda_convpool.convpool_relu(x, w, b)),
+                             "library_ms": twin_dev_ms / 20, "bound_ms": bnd[0], "bound_by": bnd[1],
+                             "x_bound": row_ms / bnd[0], "flops": flops, "max_rel_err": err,
+                             "plan": dict(zip(("nt", "tiles", "cblocks", "threads", "shared_bytes"), plan))})
+    return rows, worst
+
+
 def stretch_heads(model, samples) -> None:
     """Stretch every head's logits about their median on its curve `samples`
     (one array a head, detection first): b' = a (b - m) - 5, w' = a w, with a
@@ -707,9 +787,9 @@ def train_phase(dev, card, zero_counts, read_counts, waves, meta) -> dict:
         fail(f"training: a train step launched a kernel: {[c for c in step_counts if any(c.values())][0]}")
     launches["train"] = step_counts[-1]
     want = dict.fromkeys(launches["validation"], 0)
-    want["lstm_multi"] = 4 * val_batches[0]
+    want.update(lstm_multi=4 * val_batches[0], convpool=7 * val_batches[0])
     if val_batches[0] < 1 or launches["validation"] != want:
-        fail(f"training: validation launches {launches['validation']}, want {want} (K2 4 times a forward)")
+        fail(f"training: validation launches {launches['validation']}, want {want} (K2 4 and K9 7 times a forward)")
     if not np.isfinite(result["history"][-1]["val_loss"]):
         fail("training: the validation loss is not finite")
     fit_rate = batch_size * (n_steps - 1) / (t_fit_end - step_end[0])
@@ -911,7 +991,7 @@ def eval_phase(dev, card, zero_counts, read_counts, waves, meta) -> dict:
     hook.remove()
     n_batches = sum(-(-int((evalset["trace_split"] == s_).sum()) // EVAL_BATCH) for s_ in EVAL_SETS)
     want = dict.fromkeys(launches, 0)
-    want.update(trigger_extract=2 * n_batches, lstm_multi=4 * n_batches)
+    want.update(trigger_extract=2 * n_batches, lstm_multi=4 * n_batches, convpool=7 * n_batches)
     print(f"evaluation: eval_task0 on {card}: {n_win} windows x {len(EVAL_THRESHOLDS)} thresholds in "
           f"{eval_s * 1e3:.1f} ms = {n_win / eval_s:.1f} windows/s by the host clock; {forwards[0]} forwards "
           f"({n_batches} batches of up to {EVAL_BATCH}); launches {launches}")
@@ -1185,6 +1265,8 @@ def pick_phase(dev, card, zero_counts, read_counts, data, t_start) -> dict:
             want.update(trigger_extract=1, lstm_multi=4 * forwards[0])
             if precision == "bfloat16":
                 want["lstm_multi_bf16"] = 4 * forwards[0]
+            else:
+                want["convpool"] = 7 * forwards[0]
             if forwards[0] < 1 or launches != want:
                 fail(f"pick --precision {precision}: launches {launches}, want {want} ({forwards[0]} forwards)")
             with open(out_csv, newline="") as f:
@@ -1345,10 +1427,10 @@ def inspect_phase(dev, card, zero_counts, read_counts, waves, meta, eqt_threshol
         launches["eqtransformer/swa fit"] = got = read_counts()
         trainer.train_step, trainer.eval_step = fit_step, fit_eval
         want = dict.fromkeys(got, 0)
-        want["lstm_multi"] = 4 * val_batches[0]
+        want.update(lstm_multi=4 * val_batches[0], convpool=7 * val_batches[0])
         if val_batches[0] < SWA_EPOCHS or got != want:
             fail(f"swa: launches {got} over {val_batches[0]} validation batches, want {want} "
-                 "(no kernel in a train step, K2 4 a validation forward)")
+                 "(no kernel in a train step, K2 4 and K9 7 a validation forward)")
         losses = [h["train_loss"] for h in result["history"]] + [h["val_loss"] for h in result["history"]]
         if not all(np.isfinite(losses)):
             fail(f"swa: losses {losses}")
@@ -1469,7 +1551,7 @@ def inspect_phase(dev, card, zero_counts, read_counts, waves, meta, eqt_threshol
         curves_cpu = panel_curves(cpu_model, "cpu")
         plot_err = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(curves_card, curves_cpu) for k in a)
         want = dict.fromkeys(got, 0)
-        want["lstm_multi"] = 4 * len(shown)
+        want.update(lstm_multi=4 * len(shown), convpool=7 * len(shown))
         if got != want or not plot_err <= PLOT_TOL:
             fail(f"plot: launches {got} (want {want}); card curves {plot_err} from the CPU's (tol {PLOT_TOL})")
         drawn = ("drawn by plot_prediction_examples" if have_mpl else
@@ -1780,7 +1862,7 @@ def archive_phase(dev, card, zero_counts, read_counts, data, t_start, model, thr
         finally:
             handle.remove()
         want = dict.fromkeys(launches, 0)
-        want.update(trigger_extract=1, lstm_multi=4 * forwards[0])
+        want.update(trigger_extract=1, lstm_multi=4 * forwards[0], convpool=7 * forwards[0])
         if forwards[0] < 1 or launches != want:
             fail(f"archive: pick launches {launches}, want {want} ({forwards[0]} forwards)")
         with open(out_csv, newline="") as f:
@@ -2107,6 +2189,8 @@ def bench_phase(dev, card, zero_counts, read_counts) -> dict:
         want.update(trigger_extract=calls, lstm_multi=4 * forwards[0])
         if precision == "bfloat16":
             want["lstm_multi_bf16"] = 4 * forwards[0]
+        else:
+            want["convpool"] = 7 * forwards[0]
         if got != want or forwards[0] != BENCH_FORWARDS * calls:
             fail(f"bench {precision}: launches {got}, want {want} ({calls} calls, {forwards[0]} forwards, "
                  f"want {BENCH_FORWARDS} a call)")
@@ -2215,6 +2299,7 @@ def main() -> None:
     from volpick_tpu_torch.ops.cuda import addattn as cuda_addattn
     from volpick_tpu_torch.ops.cuda import attention as cuda_attn
     from volpick_tpu_torch.ops.cuda import conditioning as cuda_cond
+    from volpick_tpu_torch.ops.cuda import convpool as cuda_convpool
     from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
     from volpick_tpu_torch.ops.cuda import rescnn as cuda_rescnn
     from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
@@ -2628,6 +2713,21 @@ def main() -> None:
           f"{sum(r['bound_ms'] for r in up_rows):.4f} ms; every layer at B {UPCONV_BATCHES} within "
           f"{UPCONV_TOL} of its largest output (worst {up_err:.2e})")
 
+    # ---- 3, K9: convpool_relu at each encoder layer of the full-width EQTransformer
+    cp_rows, cp_err = convpool_rows(dev, rng)
+    for r in cp_rows:
+        print(f"K9 convpool_relu L{r['layer']} (B {r['b']}, I {r['i']}, O {r['o']}, K {r['k']}, L {r['l']}; "
+              f"plan {r['plan']}) on {card}: kernel {r['ms']:.4f} ms (its row under torch.profiler), "
+              f"{r['event_ms']:.4f} ms by CUDA events, the cuDNN route's kernels {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {r['x_bound']:.2f}x); max |d| "
+              f"{r['max_rel_err']:.2e} of the largest output")
+    for nb in UPCONV_BATCHES:
+        enc = [r for r in cp_rows if r["b"] == nb]
+        print(f"K9 convpool_relu: an encoder at B {nb}: kernel {sum(r['ms'] for r in enc):.4f} ms, cuDNN route "
+              f"{sum(r['library_ms'] for r in enc):.4f} ms, bound {sum(r['bound_ms'] for r in enc):.4f} ms")
+    print(f"K9 convpool_relu: every layer at B {UPCONV_BATCHES} within {CONVPOOL_TOL} of its largest output "
+          f"(worst {cp_err:.2e})")
+
     # ---- 3, bf16: the bf16 entries of K2, K5 and K7 at the same shapes
     # against their bf16 twins, each by its stated rule, each timed by its
     # profiler row beside the earlier bf16 design built in step 2
@@ -2821,7 +2921,7 @@ def main() -> None:
         "trigger_extract": (cuda_trig, "launches"), "lstm_multi": (cuda_lstm, "launches"),
         "trigger_scan": (cuda_trig, "scan_launches"), "conditioning": (cuda_cond, "launches"),
         "addattn": (cuda_addattn, "launches"), "rescnn": (cuda_rescnn, "launches"),
-        "mha": (cuda_attn, "launches"),
+        "mha": (cuda_attn, "launches"), "convpool": (cuda_convpool, "launches"),
         # the launches of the bf16 instantiations, counted in the above too
         "lstm_multi_bf16": (cuda_lstm, "bf16_launches"), "addattn_bf16": (cuda_addattn, "bf16_launches"),
         "mha_bf16": (cuda_attn, "bf16_launches"),
@@ -2838,8 +2938,9 @@ def main() -> None:
         """The launches of one classify (one classify_arrays) of a path with
         n_fwd forwards: K1 once a call, on the opt-in route K3 instead; K2 4
         times a forward on the EQT family; K7 n_layers times a forward under
-        "pallas"; on the opt-in route K5 twice and K4 once a forward; the bf16
-        instantiations where the forward runs in bf16 (K4 stays float32)."""
+        "pallas"; on the opt-in route K5 twice and K4 once a forward; K9 7
+        times a float32 forward on the EQT family; the bf16 instantiations
+        where the forward runs in bf16 (K4 stays float32, K9 does not run)."""
         optin = label == OPTIN
         want = {
             "trigger_extract": 0 if optin else 1,
@@ -2849,6 +2950,8 @@ def main() -> None:
             "lstm_multi": 4 * n_fwd if arch.endswith("eqtransformer") else 0,
             "mha": model.n_layers * n_fwd if margs.get("attn") == "pallas" else 0,
             "rescnn": 0,
+            # K9: each encoder layer of the EQT family's float32 forwards
+            "convpool": 0 if bf16 or not arch.endswith("eqtransformer") else 7 * n_fwd,
         }
         for kn in ("lstm_multi", "addattn", "mha"):
             want[f"{kn}_bf16"] = want[kn] if bf16 else 0
@@ -2918,7 +3021,8 @@ def main() -> None:
         _, dev_ms, events = profiled(lambda: picker.classify_arrays(data, thresholds, **kw))
         own = {kn: sum(self_device_us(e) for e in events if kn in e.key) / 1e3
                for kn in ("mha_kernel", "addattn_kernel", "condition_kernel", "trigger_scan_kernel",
-                          "trigger_extract_kernel", "lstm_multi_kernel", "upconv_relu_kernel")}
+                          "trigger_extract_kernel", "lstm_multi_kernel", "upconv_relu_kernel",
+                          "convpool_relu_kernel")}
         device_of[label] = dev_ms
         print(f"{label}: one classify_arrays under torch.profiler: summed kernel time "
               f"{dev_ms:.2f} ms (of it "
@@ -3178,7 +3282,7 @@ def main() -> None:
         fail(f"streaming: streamed picks differ from offline classify: only streamed "
              f"{sorted(set(got_picks) - set(want_picks))}, only offline {sorted(set(want_picks) - set(got_picks))}")
     want = dict.fromkeys(counters, 0)
-    want.update(trigger_extract=n_pass, lstm_multi=4 * n_fwd)
+    want.update(trigger_extract=n_pass, lstm_multi=4 * n_fwd, convpool=7 * n_fwd)
     if n_pass < 2 * STREAM_STATIONS or n_fwd < n_pass or by_path["eqtransformer/streaming"] != want:
         fail(f"streaming: launches {by_path['eqtransformer/streaming']}, want {want}")
     stream_rate, stream_pass_ms = n_packets / feed_s, float(np.median(pass_ms))
@@ -3219,16 +3323,16 @@ def main() -> None:
         other.load_state_dict(state, strict=True)
         route_curves[route] = rpicker.annotate_array(cut, **kw)
         torch.cuda.synchronize()
-        k2 = read_counts()["lstm_multi"]
+        k2, k9 = read_counts()["lstm_multi"], read_counts()["convpool"]
         hook.remove()
         want_k2 = 4 * forwards[0] if "plstm" in str(route) else 0
         print(f"route fused={route!r} ({other.fused!r}): max abs curve diff to the default route "
               f"{err:.3e} (tol {CURVE_TOL}; {float(np.abs(route_curves[route] - base_c).max()):.3e} with "
-              f"the heads stretched), K2 launches {k2} in {forwards[0]} forwards")
+              f"the heads stretched), K2 launches {k2}, K9 {k9} in {forwards[0]} forwards")
         if not err <= CURVE_TOL:
             fail(f"route {route!r}: curves differ from the default route by {err}")
-        if k2 != want_k2:
-            fail(f"route {route!r}: {k2} launches of K2, want {want_k2}")
+        if k2 != want_k2 or k9 != 7 * forwards[0]:
+            fail(f"route {route!r}: {k2} launches of K2 and {k9} of K9, want {want_k2} and {7 * forwards[0]}")
     # thresholds that every route's curves keep clear of, so that a sample lies
     # on the same side of a threshold and of its half on every route
     every = np.stack([base_c] + list(route_curves.values()))
@@ -3410,6 +3514,15 @@ def main() -> None:
          "launches": upconv_of["eqtransformer"], "max_rel_err": up_err, "ms": sum(r["ms"] for r in up_rows),
          "plain_ms": sum(r["plain_ms"] for r in up_rows), "bound_ms": sum(r["bound_ms"] for r in up_rows),
          "bound_by": "per layer", "library_ms": sum(r["library_ms"] for r in up_rows), "layers": up_rows},
+        # K9 replaces no TPU kernel; launches those of phase 4's classify; ms
+        # the summed profiler rows of the seven encoder layers at B 256 (one
+        # encoder), library_ms the cuDNN route's kernels (the twin's), bound_ms
+        # the benchmark's k9_work; layers: each layer's row at every batch
+        {"name": "convpool_relu", "route": "cuda", "source": "volpick_tpu_torch/csrc/convpool.cu",
+         "replaces": None, "launches": by_path["eqtransformer"]["convpool"], "max_rel_err": cp_err,
+         "ms": sum(r["ms"] for r in cp_rows if r["b"] == UPCONV_BATCHES[0]),
+         "bound_ms": sum(r["bound_ms"] for r in cp_rows if r["b"] == UPCONV_BATCHES[0]), "bound_by": "per layer",
+         "library_ms": sum(r["library_ms"] for r in cp_rows if r["b"] == UPCONV_BATCHES[0]), "layers": cp_rows},
         # mha_qkv, the entry the model calls; *_head_major is the mha entry
         entry("mha", "mha.cu", "attention.py:55", "tpupicknet/pallas", mha_err, mha_ms,
               mha_plain_ms, mha_bound, mha_lib_ms, ms_head_major=mha_hm_ms,

@@ -10,7 +10,10 @@ order on the card); the decoder layer's kernel within 1e-5 of the layer's
 largest output (it sums the taps that land on one input sample in the
 weights, so it adds the same products in another order), a full-width
 forward through it within 1e-4 of the same forward through its twin with
-equal picks; a train step on the card against the CPU port in
+equal picks; the encoder layer's kernel within 1e-5 of the layer's
+largest output as well (it sums the same products as cuDNN's float32 conv in
+another order; TF32 would miss this by ~100x), a forward through it within
+1e-4 of the plain encoder's with equal picks; a train step on the card against the CPU port in
 float64: loss 1e-10 relative, gradients 1e-6 of each tensor's largest
 entry, parameters and EMA after the step 1e-9 (the same pins hold a step of a
 world of one NCCL rank to the plain step). The bfloat16 bodies against
@@ -35,10 +38,11 @@ import pytest
 import torch
 
 from volpick_tpu_torch.models import load_model
-from volpick_tpu_torch.ops.cuda import _build
+from volpick_tpu_torch.ops.cuda import LayerRefused, _build
 from volpick_tpu_torch.ops.cuda import addattn as cuda_addattn
 from volpick_tpu_torch.ops.cuda import attention as cuda_attn
 from volpick_tpu_torch.ops.cuda import conditioning as cuda_cond
+from volpick_tpu_torch.ops.cuda import convpool as cuda_convpool
 from volpick_tpu_torch.ops.cuda import lstm as cuda_lstm
 from volpick_tpu_torch.ops.cuda import rescnn as cuda_rescnn
 from volpick_tpu_torch.ops.cuda import triggers as cuda_trig
@@ -936,6 +940,223 @@ def test_eqt_other_routes_launch_no_upconv(dev, case):
     assert cuda_upconv.launches == before
 
 
+# ---- the encoder layer (K9)
+# within 1e-5 of the layer's largest output: the kernel sums the K x I products
+# of an output in another order than cuDNN's float32 conv (~1e-6 apart);
+# TF32's 10-bit mantissa would be ~1e-3 off, so it fails this
+CONVPOOL_TOL = 1e-5
+# (I, O, K, L in) of the full-width encoder's layers; layer 4 (L 375) pads its pool
+ENCODER = [(3, 8, 11, 6000), (8, 16, 9, 3000), (16, 16, 7, 1500), (16, 32, 7, 750), (32, 32, 5, 375),
+           (32, 64, 5, 188), (64, 64, 3, 94)]
+
+
+def _refuse_layer(*args, **kwargs):
+    """A wrapper that refuses every layer's shape: the model's plain route."""
+    raise LayerRefused("refused")
+
+
+def _assert_convpool_equals_twin(x, w, b):
+    before = cuda_convpool.launches
+    got = cuda_convpool.convpool_relu(x, w, b)
+    assert cuda_convpool.launches == before + 1
+    want = cuda_convpool.convpool_relu_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_contiguous()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= CONVPOOL_TOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("b", [256, 208, 16])
+@pytest.mark.parametrize("layer", range(len(ENCODER)))
+def test_convpool_matches_twin_at_the_encoder_layers(dev, layer, b):
+    i, o, k, length = ENCODER[layer]
+    with torch.inference_mode():
+        _assert_convpool_equals_twin(*_upconv_case(dev, 100 + layer, b, i, o, length, k))
+
+
+def test_convpool_takes_the_shifted_pairs_of_an_odd_length(dev):
+    """Layer 4 (375 -> 188): the pool pads -inf on both sides, so its pairs
+    are (y[2j - 1], y[2j]): out[0] is y[0] alone and out[187] max(y[373],
+    y[374]). With only the centre tap set, y is x; a one-hot x at sample s
+    then lands at pooled output (s + 1) // 2, where pairs (2j, 2j + 1) would
+    put it at s // 2."""
+    i, o, k, length = ENCODER[4]
+    w = torch.zeros(o, i, k, device=dev)
+    w[:, :, (k - 1) // 2] = 1.0
+    b = torch.zeros(o, device=dev)
+    for s in (0, 1, 2, 185, 372, 373, 374):
+        x = torch.zeros(1, i, length, device=dev)
+        x[0, 0, s] = 1.0
+        with torch.inference_mode():
+            got = cuda_convpool.convpool_relu(x, w, b)
+            want = cuda_convpool.convpool_relu_reference(x, w, b)
+        torch.cuda.synchronize()
+        assert got.shape == (1, o, 188) and torch.equal(got, want), s
+        hot = torch.zeros(188, device=dev)
+        hot[(s + 1) // 2] = 1.0
+        assert torch.equal(got[0, 0], hot), s
+
+
+@pytest.mark.parametrize("b,i,o,length,k", [
+    (2, 3, 5, 1, 1), (2, 3, 5, 2, 4), (3, 4, 12, 3, 13), (1, 7, 9, 13, 2), (2, 1, 1, 5, 7),
+    (3, 5, 17, 33, 9), (7, 32, 40, 101, 6), (1, 100, 64, 50, 12), (2, 3, 8, 6001, 11),
+    (300, 8, 16, 1999, 10), (2, 64, 64, 95, 3)])
+def test_convpool_other_shapes(dev, b, i, o, length, k):
+    """Odd and even lengths and kernels, lengths that cut a tile or a 16-byte
+    row, channels that fill no whole group, one-sample rows, channel blocks,
+    more items than CTAs."""
+    with torch.inference_mode():
+        _assert_convpool_equals_twin(*_upconv_case(dev, b * length + k, b, i, o, length, k))
+
+
+def test_convpool_refusals(dev):
+    """Operands the kernel takes in no shape raise as errors, which the
+    model's encoder lets through; a kernel beyond the instantiations and a
+    layer whose tile fits no CTA raise ``LayerRefused``, on which the
+    encoder runs its plain code."""
+    x, w, b = _upconv_case(dev, 0, 2, 4, 6, 10, 5)
+    before = cuda_convpool.launches
+    errors = [(TypeError, "float32", (x.bfloat16(), w.bfloat16(), b.bfloat16())),
+              (ValueError, "contiguous", (x.transpose(1, 2).contiguous().transpose(1, 2), w, b)),
+              (ValueError, "require", (x, w.clone().requires_grad_(True), b))]
+    for kind, text, args in errors:
+        with pytest.raises(kind, match=text) as err:
+            cuda_convpool.convpool_relu(*args)
+        assert not isinstance(err.value, LayerRefused), text
+    with pytest.raises(LayerRefused, match="limit"):
+        cuda_convpool.convpool_relu(x, torch.zeros(6, 4, 14, device=dev), b)
+    with pytest.raises(LayerRefused, match="shared memory"):
+        cuda_convpool.convpool_relu(torch.zeros(2, 4096, 10, device=dev), torch.zeros(6, 4096, 13, device=dev), b)
+    assert cuda_convpool.launches == before
+    with torch.no_grad():  # weights that require grad, outside autograd: the kernel
+        cuda_convpool.convpool_relu(x, w.clone().requires_grad_(True), b)
+    assert cuda_convpool.launches == before + 1
+
+
+def test_convpool_plan_matches_the_library(dev):
+    fn = _build.function("convpool_shared_words", [ctypes.c_int] * 4)
+    fn.restype = ctypes.c_longlong
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, o, k, length in ENCODER:
+        for b in (256, 16):
+            nt, _, cblocks, threads, smem = cuda_convpool.convpool_plan(b, i, o, length, k, n_sm)
+            assert 4 * fn(k, i, threads // nt, nt) == smem
+
+
+@pytest.mark.parametrize("arch", ["eqtransformer", "voleqtransformer"])
+def test_eqt_encoder_through_convpool_matches_the_modules(dev, arch, monkeypatch):
+    """The eval forward at full width launches the kernel once an encoder
+    layer (7 a forward, for a strided input too; with autograd recording it
+    raises) and the ``eqt.encoder`` span counts them; the
+    ``stop_after="encoder"`` output lies within CONVPOOL_TOL of the largest
+    output of the same forward with every layer refused (the modules' plain
+    code), and the whole forward within 1e-4. No pooling kernel runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volpick_tpu_torch.models import eqtransformer as port_eqt
+    from volpick_tpu_torch.utils import profiling
+
+    model = load_model(arch, seed=2, device=dev)
+    x = torch.randn(256, 3, 6000, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    with pytest.raises(ValueError, match="require"):  # autograd recording: an error, not the plain code
+        model(x[:2], stop_after="encoder")
+    with torch.inference_mode():
+        before = cuda_convpool.launches
+        enc = model(x, stop_after="encoder")
+        assert cuda_convpool.launches == before + 7
+        strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+        assert torch.equal(model(strided, stop_after="encoder"), enc)  # the encoder hands K9 a contiguous copy
+        assert cuda_convpool.launches == before + 14
+        out = model(x[:16])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model(x[:16])
+        with monkeypatch.context() as m:
+            m.setattr(port_eqt, "convpool_relu", _refuse_layer)
+            before = cuda_convpool.launches
+            plain = model(x, stop_after="encoder")
+            plain_out = model(x[:16])
+            assert cuda_convpool.launches == before
+    torch.cuda.synchronize()
+    span, = [s for s in profiling.spans() if s.name == "eqt.encoder"][-1:]
+    assert span.counts == {"convpool": 7}
+    rows = prof.key_averages()
+    assert sum(e.count for e in rows if "convpool_relu_kernel" in e.key) == 7
+    assert not [e.key for e in rows if "max_pool" in e.key]  # the pooling pass is gone
+    err, scale = float((enc - plain).abs().max()), float(plain.abs().max())
+    assert enc.shape == plain.shape == (256, 64, 47) and err <= CONVPOOL_TOL * scale, (err, scale)
+    for g, r in zip(out, plain_out):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+
+
+def test_classify_picks_through_convpool_equal_the_plain_encoders(dev, monkeypatch):
+    """A seeded request through ``WaveformPicker.classify_arrays``: the same
+    picks with the encoder through K9 and through the plain modules, at
+    thresholds on which both curves (within 1e-4) trigger alike."""
+    from volpick_tpu_torch.models import eqtransformer as port_eqt
+
+    rng = np.random.default_rng(29)
+    data = (rng.normal(size=(4, 3, 30000)) * 0.1).astype(np.float32)
+    data[:, :, 9000:9400] += 2.0 * np.hanning(400).astype(np.float32)
+    model = load_model("eqtransformer", seed=5, device=dev)
+    picker = WaveformPicker(model, device=dev)
+    kw = dict(overlap=5500, blinding=(500, 500), batch_size=64)
+    curves = picker.annotate_array(data, **kw)
+    heads = [model.conv_d] + list(model.pick_convs)
+    with torch.no_grad():  # isolated peaks, as in the decoder's test
+        for ci, head in enumerate(heads):
+            pr = np.clip(curves[:, ci, 500:-500].astype(np.float64), 1e-7, 1 - 1e-7)
+            lo, mid, hi = np.percentile(np.log(pr / (1 - pr)), [16, 50, 84])
+            a = 3.0 / float(hi - lo)
+            head.bias.copy_((head.bias - float(mid)) * a - 5.0)
+            head.weight.mul_(a)
+    before = cuda_convpool.launches
+    curves = picker.annotate_array(data, **kw)
+    assert cuda_convpool.launches > before
+    with monkeypatch.context() as m:
+        m.setattr(port_eqt, "convpool_relu", _refuse_layer)
+        plain = picker.annotate_array(data, **kw)
+    np.testing.assert_allclose(curves, plain, atol=1e-4)
+    thr = {}
+    for ci, lab in enumerate(picker._prob_channels()):
+        thr[lab], _ = _clear_threshold(curves[:, ci], plain[:, ci])
+        assert thr[lab] is not None, lab
+    res = picker.classify_arrays(data, thr, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(port_eqt, "convpool_relu", _refuse_layer)
+        plain_res = picker.classify_arrays(data, thr, **kw)
+    assert sum(int(v[2].sum()) for v in res.values()) > 0
+    for lab in res:
+        (idx, val, *rest), (p_idx, p_val, *p_rest) = res[lab], plain_res[lab]
+        np.testing.assert_array_equal(idx, p_idx)
+        np.testing.assert_allclose(val, p_val, atol=1e-4)
+        for g, r in zip(rest, p_rest):
+            np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("kernel_sizes,refused", [((11, 9, 7, 7, 5, 5, 4), (0, 1)), ((15, 9, 7, 7, 5, 5, 3), (1, 1))],
+                         ids=["even", "k15"])
+def test_eqt_with_kernels_the_wrappers_refuse_runs_on_the_card(dev, kernel_sizes, refused):
+    """An even decoder kernel (K8 refuses it; K9 takes even kernels) and a
+    15-sample one (beyond both kernels' instantiations): the eval forward
+    runs, those layers launch nothing, the others one launch each, and the
+    curves lie within 1e-4 of the CPU port's (float32 sums in other orders)."""
+    import copy
+
+    enc_refused, dec_refused = refused
+    cpu = load_model("eqtransformer", seed=6, device="cpu", kernel_sizes=kernel_sizes)
+    gpu = copy.deepcopy(cpu).to(dev)
+    x = torch.randn(8, 3, 6000, generator=torch.Generator().manual_seed(7))
+    before = (cuda_convpool.launches, cuda_upconv.launches)
+    with torch.inference_mode():
+        got = gpu(x.to(dev))
+        want = cpu(x)
+    torch.cuda.synchronize()
+    assert cuda_convpool.launches - before[0] == 7 - enc_refused
+    assert cuda_upconv.launches - before[1] == 3 * (7 - dec_refused)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=0)
+
+
 # ---- training
 def _train_batch(n, w, dtype, device):
     rng = np.random.default_rng(5)
@@ -1005,6 +1226,8 @@ def test_kernel_wrappers_refuse_autograd_inputs(dev):
         "lstm_multi": (cuda_lstm.lstm_multi, lambda: (r(2, 3, 16, 47), r(2, 64, 16), r(2, 64, 16), r(2, 64))),
         "lstm_branches": (cuda_lstm.lstm_branches,
                           lambda: (r(3, 16, 47), r(2, 64, 16), r(2, 64, 16), r(2, 64), (False, True))),
+        "upconv_relu": (cuda_upconv.upconv_relu, lambda: (r(2, 16, 47), r(8, 16, 5), r(8))),
+        "convpool_relu": (cuda_convpool.convpool_relu, lambda: (r(2, 3, 600), r(8, 3, 11), r(8))),
     }
     for name, (fn, make) in calls.items():
         args = make()

@@ -19,7 +19,7 @@ import torch
 
 from volpick_tpu.models import layers as jlayers
 from volpick_tpu_torch.models import layers as tlayers
-from volpick_tpu_torch.ops.cuda import upconv
+from volpick_tpu_torch.ops.cuda import LayerRefused, upconv
 
 JAX_ATOL = 1e-5
 FOLD_ATOL = 1e-10
@@ -128,7 +128,7 @@ def test_plan_refuses_what_no_launch_can_take():
         upconv.upconv_plan(4, 16, 8, 100, 4, N_SM)
     with pytest.raises(ValueError, match="no plan"):
         upconv.upconv_plan(4, 16, 8, 100, 15, N_SM)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(LayerRefused, match="shared memory"):
         upconv.upconv_plan(4, 4096, 8, 100, 13, N_SM)
 
 
@@ -143,5 +143,48 @@ def test_refusals_on_every_device(case):
         "empty_time": (torch.zeros(2, 4, 0), w, b, 0),
         "rank": (x[0], w, b, 0),
     }[case]
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError) as err:
         upconv.upconv_relu(*args)
+    # the model's decoder runs its plain code for a refused shape, and lets every other error through
+    assert isinstance(err.value, LayerRefused) == (case == "even_k")
+
+
+@pytest.mark.parametrize("kernel_sizes", [(11, 9, 7, 7, 5, 5, 4), (15, 9, 7, 7, 5, 5, 3)], ids=["even", "k15"])
+def test_eval_forward_of_kernels_the_wrapper_refuses_matches_jax(kernel_sizes, monkeypatch):
+    """An EQTransformer whose decoders hold an even kernel (which
+    ``upconv_relu`` refuses on every device) or a 15-sample one (refused on
+    the card, forced here) runs its eval forward: each such layer takes the
+    plain decoder code, the others the wrapper, and the curves are JAX's
+    within the EQT forward pin, 2e-4."""
+    from tests.test_torch_eqtransformer import _jax_params, _windows
+    from volpick_tpu.models import EQTransformer as JaxEQT
+    from volpick_tpu_torch.models import EQTransformer
+    from volpick_tpu_torch.models import eqtransformer as port_eqt
+    from volpick_tpu_torch.models.convert import eqtransformer_state_dict_from_jax
+
+    small = dict(in_samples=1504, lstm_blocks=1, kernel_sizes=kernel_sizes)
+    jmodel = JaxEQT(**small)
+    params = _jax_params(jmodel)
+    model = EQTransformer(**small)
+    model.load_state_dict(eqtransformer_state_dict_from_jax(params), strict=True)
+    model.eval()
+    calls = []
+    real = port_eqt.upconv_relu
+
+    def counted(z, w, *a, **k):
+        if w.shape[-1] > upconv.MAX_KERNEL:  # the card's refusal, here where the twin would take it
+            raise LayerRefused(f"kernel size {w.shape[-1]}")
+        out = real(z, w, *a, **k)
+        calls.append(w.shape[-1])
+        return out
+
+    monkeypatch.setattr(port_eqt, "upconv_relu", counted)
+    x = _windows(2, 1504)
+    want = jmodel.apply(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x))
+    with torch.inference_mode():
+        got = model(torch.as_tensor(x))
+    refused = [k for k in kernel_sizes[::-1] if k % 2 == 0 or k > upconv.MAX_KERNEL]
+    assert len(refused) == 1 and refused[0] not in calls
+    assert sorted(calls) == sorted([k for k in kernel_sizes[::-1] if k not in refused] * 3)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4)

@@ -7,8 +7,12 @@ branches (an LSTM and width-3 attention each), each with its own decoder and
 sigmoid head. While a ``torch.profiler`` session is active the eval forward
 records the spans ``eqt.encoder``, ``eqt.res_cnn``, ``eqt.bilstm``,
 ``eqt.transformer`` and ``eqt.branches`` (``utils/profiling.py::span``),
-timed on the device. ``fused`` selects among the JAX package's routes through that
-program (``parse_fused``); the default, ``"plstm+bandattn"``, runs every LSTM
+timed on the device. The eval forward in float32 runs each encoder layer
+through ``ops/cuda/convpool.py::convpool_relu`` (conv, bias, ReLU and
+max-pool in one kernel launch on the card) on every route, and counts those
+layers as ``convpool`` on the ``eqt.encoder`` span. ``fused``
+selects among the JAX package's routes through that program
+(``parse_fused``); the default, ``"plstm+bandattn"``, runs every LSTM
 recurrence through ``ops/cuda/lstm.py::lstm_branches`` (both pick LSTMs in one
 merged recurrence) and the pick attention over its band only. With ``"pattn"``
 the transformer blocks' attention goes through
@@ -16,7 +20,9 @@ the transformer blocks' attention goes through
 a per-branch decoder route without ``"polyup"`` (the default among them)
 runs each decoder layer through ``ops/cuda/upconv.py::upconv_relu``, one
 kernel launch a layer on the card, and counts those layers as ``upconv`` on
-the ``eqt.branches`` span.
+the ``eqt.branches`` span. A layer whose shape a kernel does not take (the
+wrapper raises ``LayerRefused``: an even or long kernel, a tile that fits no
+CTA) runs the plain code, as train mode and bf16 do.
 
 In train mode (``model.train()``) the forward takes the per-branch program,
 as the JAX ``apply(train=True)`` does: plain recurrences and the dense masked
@@ -58,7 +64,9 @@ from volpick_tpu_torch.models.layers import (
     upsample_nearest,
 )
 from volpick_tpu_torch.models.params import Conv, bn, norm, uniform
+from volpick_tpu_torch.ops.cuda import LayerRefused
 from volpick_tpu_torch.ops.cuda.addattn import seq_self_attention as seq_self_attention_kernel
+from volpick_tpu_torch.ops.cuda.convpool import convpool_relu
 from volpick_tpu_torch.ops.cuda.lstm import lstm_branches, lstm_branches_reference
 from volpick_tpu_torch.ops.cuda.upconv import upconv_relu
 from volpick_tpu_torch.utils import profiling
@@ -151,6 +159,16 @@ class Linear(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(uniform((o, i), bound, gen))
         self.bias = nn.Parameter(torch.zeros(o))
+
+
+def _unless_refused(layer, *args, **kwargs) -> Optional[torch.Tensor]:
+    """``layer(*args, **kwargs)`` (K8's or K9's wrapper), or None where it
+    refuses the layer's shape (``LayerRefused``): the caller then runs its
+    plain code. Every other refusal propagates."""
+    try:
+        return layer(*args, **kwargs)
+    except LayerRefused:
+        return None
 
 
 def _bn(c: int) -> nn.BatchNorm1d:
@@ -365,13 +383,9 @@ class EQTransformer(nn.Module):
         f, ks = list(self.filters), list(self.kernel_sizes)
         return ConvStack([16] + f[::-1][:-1], f[::-1], ks[::-1], gen)
 
-    def _upconv(self, z, w, b, i: int, poly_up: bool, groups: int = 1, kernel: bool = False) -> torch.Tensor:
+    def _upconv(self, z, w, b, i: int, poly_up: bool, groups: int = 1) -> torch.Tensor:
         """Decoder layer i: 2x nearest upsampling (cropped by one where the
-        encoder padded), 'same' conv, relu. ``kernel``: through
-        ``ops/cuda/upconv.py::upconv_relu`` (its kernel on the card, on the CPU
-        its twin, which is the plain code below)."""
-        if kernel:
-            return upconv_relu(z.contiguous(), w, b, crop_last=int(i in self._crops))
+        encoder padded), 'same' conv, relu."""
         if poly_up:
             return F.relu(upsample2_conv1d_same(z, w, b, crop_last=i in self._crops, groups=groups))
         z = upsample_nearest(z, 2)
@@ -380,11 +394,24 @@ class EQTransformer(nn.Module):
         return F.relu(conv1d_same(z, w, b, groups=groups))
 
     def _decode(self, z: torch.Tensor, dec: ConvStack, head: Conv, poly_up: bool,
-                kernel: bool = False) -> torch.Tensor:
-        """One branch's decoder and head: (B, 16, T) → logits (B, in_samples)."""
+                kernel: bool = False) -> Tuple[torch.Tensor, int]:
+        """One branch's decoder and head: (B, 16, T) → (logits (B,
+        in_samples), its layers that ran through ``upconv_relu``). ``kernel``:
+        each layer goes through ``ops/cuda/upconv.py::upconv_relu`` (its
+        kernel on the card, on the CPU its twin, which is the plain code of
+        ``_upconv``) unless the wrapper refuses its shape."""
+        n = 0
         for i, conv in enumerate(dec.convs):
-            z = self._upconv(z, conv.weight, conv.bias, i, poly_up, kernel=kernel)
-        return head.same(z)[:, 0]
+            y = None
+            if kernel:
+                y = _unless_refused(upconv_relu, z.contiguous(), conv.weight, conv.bias,
+                                    crop_last=int(i in self._crops))
+            if y is None:
+                y = self._upconv(z, conv.weight, conv.bias, i, poly_up)
+            else:
+                n += 1
+            z = y
+        return head.same(z)[:, 0], n
 
     def _decode_merged(self, branch_ins, decoders, heads, mode: str, poly_up: bool):
         """Every branch's decoder and head as ONE conv stack: grouped, or dense
@@ -407,10 +434,27 @@ class EQTransformer(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """The encoder alone: x (B, 3, in_samples) → (B, filters[-1], T)."""
-        h = x
+        return self._encode(x)[0]
+
+    def _encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """The encoder → (its output, its layers that ran through
+        ``convpool_relu``). The float32 eval forward sends each layer through
+        ``ops/cuda/convpool.py::convpool_relu`` (its kernel on the card, on the
+        CPU its twin, which is the plain code below) unless the wrapper
+        refuses its shape or the input's length pads otherwise than the
+        model's ``in_samples``."""
+        kernel = not self.training and x.dtype == torch.float32
+        h, n = x, 0
         for conv, pad in zip(self.encoder.convs, self._pool_pads):
-            h = max_pool1d(F.relu(conv.same(h)), 2, padding=pad)
-        return h
+            y = None
+            if kernel and pad == h.shape[-1] % 2:
+                y = _unless_refused(convpool_relu, h.contiguous(), conv.weight, conv.bias)
+            if y is None:
+                y = max_pool1d(F.relu(conv.same(h)), 2, padding=pad)
+            else:
+                n += 1
+            h = y
+        return h, n
 
     def resolve_fused(self) -> str:
         """The forward's canonical route: the ``fused`` field, else
@@ -453,8 +497,10 @@ class EQTransformer(nn.Module):
         stage = (lambda name: contextlib.nullcontext()) if self.training else (
             lambda name: profiling.span(name, x.device))
 
-        with stage("eqt.encoder"):
-            h = self.encode(x)
+        with stage("eqt.encoder") as encoder:
+            h, n_convpool = self._encode(x)
+            if not self.training:
+                encoder.count(convpool=n_convpool if h.is_cuda else 0)
         if stop_after == "encoder":
             return h
         with stage("eqt.res_cnn"):
@@ -505,14 +551,19 @@ class EQTransformer(nn.Module):
             decoders = [getattr(self, dk) for dk, _ in self.detection_branches] + list(self.pick_decoders)
             heads = [getattr(self, ck) for _, ck in self.detection_branches] + list(self.pick_convs)
             # the per-branch decoders of the float32 eval forward without "polyup"
-            # take upconv_relu, one launch a layer on the card
+            # take upconv_relu unless it refuses the layer's shape, one launch a layer on the card
             kernel = decode_mode == "branch" and not poly_up and not self.training and h.dtype == torch.float32
+            n_upconv = 0
             if decode_mode == "branch":
-                preds = [self._decode(z, d, c, poly_up, kernel) for z, d, c in zip(branch_ins, decoders, heads)]
+                preds = []
+                for z, d, c in zip(branch_ins, decoders, heads):
+                    p, n = self._decode(z, d, c, poly_up, kernel)
+                    preds.append(p)
+                    n_upconv += n
             else:
                 preds = self._decode_merged(branch_ins, decoders, heads, decode_mode, poly_up)
             if not self.training:
-                branches.count(upconv=sum(len(d.convs) for d in decoders) if kernel and h.is_cuda else 0)
+                branches.count(upconv=n_upconv if h.is_cuda else 0)
             return tuple(preds if logits else [torch.sigmoid(p) for p in preds])
 
 

@@ -20,9 +20,11 @@ output once, ReLU applied; see the source for the design.
 ``upconv_relu`` takes the twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no other route. On CUDA it refuses, rather than converts,
 what the kernel does not take: another type than float32, a non-contiguous
-tensor, a kernel longer than ``MAX_KERNEL``, and an input that requires grad
-while autograd records (the kernel has no backward). An even K is refused on
-every device.
+tensor and an input that requires grad while autograd records (the kernel
+has no backward) raise as errors; a kernel longer than ``MAX_KERNEL`` and a
+layer whose tile fits no CTA's shared memory raise ``LayerRefused``, as an
+even K does on every device, and the model's decoder runs its plain code
+for such a layer.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from volpick_tpu_torch.ops.cuda import _build, refuse_autograd
+from volpick_tpu_torch.ops.cuda import LayerRefused, _build, check_conv_operands, tile_plan
 
 CHANNELS_PER_THREAD = 8  # kCO of csrc/upconv.cu
 STEPS_PER_THREAD = 4  # kTT: input steps a thread owns, 8 outputs
@@ -77,79 +79,40 @@ def shared_bytes(k: int, i: int, gc: int, nt: int) -> int:
 @functools.lru_cache(maxsize=256)
 def upconv_plan(b: int, i: int, o: int, t: int, k: int, n_sm: int) -> Tuple[int, int, int, int, int]:
     """``(nt, n_tiles, cblocks, threads, shared bytes)`` of a launch over
-    B windows of x (B, I, T) and w (O, I, K) on a card of ``n_sm`` SMs.
-
-    A CTA has gc channel groups of 8 output channels (all of O, or 1 of
-    ``cblocks`` blocks of them) and ``nt`` time lanes of 4 input steps (a
-    multiple of 8), at most 256 threads; an item is one window and one tile
-    of 4·nt input steps, ``n_tiles`` tiles a window cut evenly. Candidates
-    run from all channels in one block and the widest tile down; the first
-    that gives at least ``n_sm`` items with 64 threads or more is taken,
-    else the one with the most items. Raises ValueError when no tile fits
-    in shared memory."""
+    B windows of x (B, I, T) and w (O, I, K) on a card of ``n_sm`` SMs:
+    ``ops/cuda/__init__.py::tile_plan`` with time lanes of 4 input steps.
+    Raises ``LayerRefused`` when no tile fits in shared memory."""
     if min(b, i, o, t, n_sm) < 1 or k % 2 == 0 or k > MAX_KERNEL:
         raise ValueError(f"upconv_plan: no plan for b={b}, i={i}, o={o}, t={t}, k={k}, n_sm={n_sm}")
-    groups = -(-o // CHANNELS_PER_THREAD)
-    cands = []
-    splits = [s for s in (1, 2, 4, 8, 16, 32, 64) if s <= groups]
-    for s in splits:
-        cblocks = -(-groups // -(-groups // s))  # no empty block
-        gc = -(-groups // cblocks)  # as csrc/upconv.cu computes it
-        for cap in (256, 128, 64, 32, 16, 8):
-            if gc * cap > MAX_THREADS:
-                continue
-            tiles = -(-t // (STEPS_PER_THREAD * cap))
-            nt = 8 * -(-t // (tiles * STEPS_PER_THREAD * 8))
-            smem = shared_bytes(k, i, gc, nt)
-            if smem <= MAX_SHARED_BYTES:
-                cands.append((nt, tiles, cblocks, gc * nt, smem, b * tiles * cblocks))
-    if not cands:
-        raise ValueError(f"upconv_plan: I={i} input channels at K={k} exceed the kernel's shared memory")
-    for cand in cands:
-        if cand[5] >= n_sm and cand[3] >= 64:
-            return cand[:5]
-    wide = [c for c in cands if c[3] >= 64] or cands
-    return max(wide, key=lambda c: c[5])[:5]
-
-
-def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, crop_last) -> int:
-    if x.dim() != 3 or w.dim() != 3 or b.dim() != 1:
-        raise ValueError(f"x (B, I, T), w (O, I, K), b (O,) expected, got {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}, {tuple(b.shape)}")
-    o, i, k = w.shape
-    if x.shape[1] != i or b.shape[0] != o or i < 1:
-        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)} do not agree")
-    if k % 2 == 0:
-        raise ValueError(f"upconv_relu takes odd kernels only, got K={k}")
-    if x.shape[2] < 1:
-        raise ValueError("upconv_relu needs T >= 1")
-    if crop_last not in (0, 1):
-        raise ValueError(f"crop_last must be 0 or 1, got {crop_last!r}")
-    for name, a in (("w", w), ("b", b)):
-        if a.device != x.device:
-            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
-    return int(crop_last)
+    return tile_plan(b, o, t, STEPS_PER_THREAD, lambda gc, nt: shared_bytes(k, i, gc, nt), n_sm,
+                     MAX_THREADS, MAX_SHARED_BYTES, f"upconv_plan (I={i}, K={k})")
 
 
 def upconv_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, crop_last: int = 0) -> torch.Tensor:
     """relu(conv1d_same(upsample_nearest(x, 2)[..., :2T - crop_last], w, b)):
-    x (B, I, T), w (O, I, K) with odd K, b (O,) → (B, O, 2T - crop_last)."""
+    x (B, I, T), w (O, I, K) with odd K, b (O,) → (B, O, 2T - crop_last).
+    Raises ``LayerRefused`` for a layer whose shape the kernel does not take
+    (an even K; on the card a long kernel or no plan)."""
     global launches
-    crop = _check(x, w, b, crop_last)
-    if x.device.type == "cpu":
-        return upconv_relu_reference(x, w, b, crop)
-    if x.device.type != "cuda":
-        raise ValueError(f"upconv_relu runs on cpu or cuda, got {x.device}")
-    for name, a in (("x", x), ("w", w), ("b", b)):
-        if a.dtype != torch.float32:
-            raise TypeError(f"upconv_relu's kernel takes float32, got {name} {a.dtype}")
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if x.dim() != 3 or w.dim() != 3 or b.dim() != 1:
+        raise ValueError(f"x (B, I, T), w (O, I, K), b (O,) expected, got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
     n, i, t = x.shape
     o, _, k = w.shape
+    if w.shape[1] != i or b.shape[0] != o or i < 1:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)} do not agree")
+    if t < 1:
+        raise ValueError("upconv_relu needs T >= 1")
+    if crop_last not in (0, 1):
+        raise ValueError(f"crop_last must be 0 or 1, got {crop_last!r}")
+    check_conv_operands("upconv_relu", x, w, b)
+    if k % 2 == 0:
+        raise LayerRefused(f"upconv_relu takes odd kernels only, got K={k}")
+    crop = int(crop_last)
+    if x.device.type == "cpu":
+        return upconv_relu_reference(x, w, b, crop)
     if k > MAX_KERNEL:
-        raise ValueError(f"kernel size {k} exceeds the kernel's limit {MAX_KERNEL}")
-    refuse_autograd("upconv_relu", x=x, w=w, b=b)
+        raise LayerRefused(f"kernel size {k} exceeds the kernel's limit {MAX_KERNEL}")
     out = torch.empty((n, o, 2 * t - crop), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
